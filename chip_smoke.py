@@ -2,14 +2,15 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 1 min
-    python3 chip_smoke.py --profile   # the same, tracing both track runs
+    python3 chip_smoke.py             # on one card, about 3 min
+    python3 chip_smoke.py --profile   # the same, tracing the track runs
+                                      # and the retrieval run
 
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build    nvcc of every kernel source in reid_tpu_torch/csrc, all
               started together, into reid_tpu_torch/_build;
-  3. kernels  each kernel at each call site of the main path, on a batch of
+  3. kernels  each kernel at each call site of the track path, on a batch of
               B = 2048 crops (a 32-frame chunk of 64 detection slots): held
               against its plain PyTorch version (conv3x3_s8 exactly, the
               fused SE block at rtol = atol = 1e-4 on >= 99.9% of elements
@@ -28,7 +29,42 @@ Phases, one JSON line each:
               8 frames; launch counts are zeroed just before each run and
               read just after it;
   5. embed    the card's int8 embed against the same quantized model on the
-              CPU (plain kernel versions), cosine of [feat || logits].
+              CPU (plain kernel versions), cosine of [feat || logits];
+  6. retrieval `reid_tpu_torch.cli.inference` (the body of
+              `inference_main`) on an in-memory synthetic split of
+              Market-1501's size: 3,368 queries and 19,732 gallery images
+              of 256x128, 750 ids, 6 cameras; SERes18 in f32 with 751
+              classes (D = 1,263) and random weights (seed 0); --bs 64,
+              TTA flip, camera de-bias, k1 = 20, k2 = 6, eps 0.55,
+              --search_option dense. CMC@1/5/10, mAP, seconds per stage and
+              peak device memory; launch counts are zeroed just before the
+              run and read just after it;
+  7. retrieval --int8: the same run with the int8 serving embed, whose
+              f32 trunk runs both int8 kernels in their f32-in, f32-out
+              form; its launch counts likewise, and the cosine of its
+              gallery embeddings to phase 6's reported;
+  8. kernels, f32 form: as phase 3 (the same limits) at each call site of
+              the `--int8` retrieval trunk, on one embed batch of 128
+              images (64 query images and their flips);
+  9. distance kernels, held against their plain versions (rtol = atol =
+              1e-4 for sqeuclidean, 1e-5 for l1) and timed like phase 3, on
+              the operands of phase 6's first Jaccard call: sqeuclidean at
+              the path's query block (1,024 of the de-biased unit features
+              against all 23,100, D = 1,263), with the share of rows whose
+              top-20 indices match; l1 on the V encoding recomputed from
+              those features, a slab of 1,024 rows against N = D = 23,100,
+              and one full 23,100^3 call;
+ 10. retrieval on the card against the CPU: the post-embed half
+              (`evaluate_features`) on the same 1,024 features (160
+              queries, 864 gallery images: ids 0-31), dense and sparse:
+              CMC within 1/Q at every rank and mAP within 1e-2, with the
+              share of Jaccard entries within 1e-4 reported, and a second
+              card run equal to the first bit for bit; from the same
+              features and ranking the Jaccard within 1e-5 everywhere, and
+              the top-20 sets equal on >= 99.9% of rows (near-ties: see
+              `phase_retrieval_cpu`); then the f32 and the int8 TTA embed,
+              card against CPU, on 16 images: cosine >= 0.99999 and
+              >= 0.999.
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -47,9 +83,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-# Dense peaks by card (NVIDIA data sheets): int8 tensor ops/s, bytes/s.
-PEAKS = {"H100 PCIe": (1513e12, 2.0e12), "H100 NVL": (1671e12, 3.9e12),
-         "H200": (1979e12, 4.8e12), "H100": (1979e12, 3.35e12)}
+# Dense peaks by card (NVIDIA data sheets): int8 tensor ops/s, f32 flop/s
+# outside the tensor cores (an FMA counts two), bytes/s.
+PEAKS = {"H100 PCIe": dict(int8=1513e12, fp32=51.2e12, bytes=2.0e12),
+         "H100 NVL": dict(int8=1671e12, fp32=60.0e12, bytes=3.9e12),
+         "H200": dict(int8=1979e12, fp32=66.9e12, bytes=4.8e12),
+         "H100": dict(int8=1979e12, fp32=66.9e12, bytes=3.35e12)}
 
 # Call sites of each kernel on the main path: module path (and, for
 # conv3x3_s8, the per-image shape H, W, Cin, Cout).
@@ -60,6 +99,11 @@ K1_SOURCE, K1_REPLACES = ("reid_tpu_torch/csrc/qconv.cu",
                           "reid_tpu/ops/qconv.py:116")
 K2_SOURCE, K2_REPLACES = ("reid_tpu_torch/csrc/qblock.cu",
                           "reid_tpu/ops/qblock.py:313")
+K6_REPLACES = "reid_tpu/ops/distance.py:85"
+K7_REPLACES = "reid_tpu/ops/distance.py:149"
+DIST_SOURCE = "reid_tpu_torch/csrc/distance.cu"
+# the retrieval operating point: Market-1501's test split
+N_QUERY, N_GALLERY, N_IDS, N_CAMS, N_CLASSES = 3368, 19732, 750, 6, 751
 
 RESULTS = {}
 
@@ -94,9 +138,14 @@ def time_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
-def bound(ops, nbytes, kind):
-    rate, bw = peaks(kind)
-    t_ops, t_bytes = ops / rate * 1e3, nbytes / bw * 1e3
+def bound(ops, nbytes, kind, rate="int8"):
+    """The least time in ms: `ops` at the card's `rate` ("int8" tensor ops,
+    "fp32" flops with an FMA as two, "fp32_alu" single f32 instructions
+    such as an add: half the fp32 flop rate) or `nbytes` at its memory
+    rate, whichever is longer."""
+    pk = peaks(kind)
+    per_s = pk["fp32"] / 2 if rate == "fp32_alu" else pk[rate]
+    t_ops, t_bytes = ops / per_s * 1e3, nbytes / pk["bytes"] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -129,8 +178,7 @@ def phase_device():
     kind = torch.cuda.get_device_name(0)
     emit("device", nvidia_smi=smi, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, peaks=dict(zip(("int8_ops", "bytes"),
-                                                 peaks(kind))))
+         cuda=torch.version.cuda, peaks=peaks(kind))
     return smi, kind
 
 
@@ -146,18 +194,17 @@ def phase_build():
          ptxas=logs)
 
 
-def quantized_trunk(dev, b, num_classes=751, seed=0):
-    """The main path's quantized SERes18, and the input each kernel call
-    site receives when it embeds a batch of `b` random crops."""
+def quantized_trunk(dev, dtype, calib, crops, num_classes=751):
+    """The quantized SERes18 of a path (bf16 for tracking, f32 for
+    retrieval), calibrated on `calib`, and the input each kernel call site
+    receives when it embeds the batch `crops`."""
     import torch
     from reid_tpu_torch.models import build_model
     from reid_tpu_torch.utils.quantize import quantize, quantized_model
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    model = build_model("seres18", num_classes=num_classes,
-                        dtype=torch.bfloat16, device=dev)
-    crops = torch.randn((b, 256, 128, 3), generator=gen, device=dev)
-    qm = quantized_model(model, quantize(model, [crops[:32]]))
+    model = build_model("seres18", num_classes=num_classes, dtype=dtype,
+                        device=dev)
+    qm = quantized_model(model, quantize(model, [calib]))
     seen = {}
 
     def grab(name):
@@ -174,13 +221,15 @@ def quantized_trunk(dev, b, num_classes=751, seed=0):
     return qm, seen
 
 
-def phase_kernels(kind, b):
+def phase_kernels(kind, dtype, calib, crops, path, suffix=""):
+    """K1 and K2 at each call site of `path`'s quantized trunk (`dtype`
+    in and out), on the inputs that embedding `crops` gives them."""
     import torch
     from reid_tpu_torch.ops import qblock, qconv
     from reid_tpu_torch.utils.quantize import _im2col, quantize_input
 
-    dev = torch.device("cuda")
-    qm, seen = quantized_trunk(dev, b)
+    qm, seen = quantized_trunk(crops.device, dtype, calib, crops)
+    esize = torch.finfo(dtype).bits // 8
     rows = []
     with torch.inference_mode():
         for site, (h, w, cin, cout) in K1_SITES:
@@ -188,7 +237,7 @@ def phase_kernels(kind, b):
             assert mod.route, site
             xq = quantize_input(seen[site], mod.sx).contiguous()
             assert tuple(xq.shape[1:]) == (h, w, cin), xq.shape
-            args = (xq, mod.mm.wt, mod.scale)
+            args = (xq, mod.mm.wt, mod.scale, dtype)
             got = qconv.conv3x3_s8(*args)
             want = qconv.conv3x3_s8_plain(*args)
             torch.cuda.synchronize()
@@ -203,10 +252,11 @@ def phase_kernels(kind, b):
             del cols
             bms, by = bound(2 * m * cout * 9 * cin,
                             m * cin + cout * 9 * cin + 4 * cout
-                            + 2 * m * cout, kind)
-            rows.append(dict(name=f"conv3x3_s8 {site}", route="cuda",
+                            + esize * m * cout, kind)
+            rows.append(dict(name=f"conv3x3_s8 {site}{suffix}", route="cuda",
                              source=K1_SOURCE, replaces=K1_REPLACES,
-                             site=[h, w, cin, cout], batch=xq.shape[0],
+                             path=path, site=[h, w, cin, cout],
+                             batch=xq.shape[0], out_dtype=str(dtype),
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by, library_ms=lib_ms))
             emit(f"kernel {rows[-1]['name']}", **rows[-1])
@@ -216,28 +266,30 @@ def phase_kernels(kind, b):
             p, ibn = mod.p, mod.ibn
             bsz, h, w, cin = x.shape
             cout, mip = p.w2.shape[0], p.wfc1.shape[1]
-            got = qblock.se_basic_block_s8(x, p, ibn=ibn)
-            want = qblock.se_basic_block_s8_plain(x, p, ibn=ibn)
+            assert x.dtype == dtype, (site, x.dtype)
+            got = qblock.se_basic_block_s8(x, p, ibn, dtype)
+            want = qblock.se_basic_block_s8_plain(x, p, ibn, dtype)
             torch.cuda.synchronize()
             share, err = within(got.float(), want.float())
             del want
             share_t, err_t, loose_t = agreement(
                 got.float(), qblock.se_basic_block_s8_plain(
-                    x, p, ibn=ibn, kernel_order=False).float())
-            ms = time_ms(lambda: qblock.se_basic_block_s8(x, p, ibn=ibn))
+                    x, p, ibn, dtype, kernel_order=False).float())
+            ms = time_ms(lambda: qblock.se_basic_block_s8(x, p, ibn, dtype))
             plain_ms = time_ms(
-                lambda: qblock.se_basic_block_s8_plain(x, p, ibn=ibn))
+                lambda: qblock.se_basic_block_s8_plain(x, p, ibn, dtype))
             m = bsz * h * w
             down = p.wd is not None
             ops = (2 * m * cout * 9 * (cin + cout)
                    + (2 * m * cout * cin if down else 0)
                    + 4 * bsz * cout * mip)
-            nbytes = (2 * m * cin + 9 * cout * (cin + cout)
+            nbytes = (esize * m * cin + 9 * cout * (cin + cout)
                       + (cout * cin if down else 0) + 4 * cout * mip
-                      + 4 * 9 * cout + 2 * m * cout)
+                      + 4 * 9 * cout + esize * m * cout)
             bms, by = bound(ops, nbytes, kind)
-            rows.append(dict(name=f"se_basic_block_s8 {site}", route="cuda",
-                             source=K2_SOURCE, replaces=K2_REPLACES,
+            rows.append(dict(name=f"se_basic_block_s8 {site}{suffix}",
+                             route="cuda", source=K2_SOURCE,
+                             replaces=K2_REPLACES, path=path,
                              site=[h, w, cin, cout, int(ibn)], batch=bsz,
                              down=down, max_abs_err=err, share_tight=share,
                              share_tight_torch_order=share_t,
@@ -388,29 +440,363 @@ def phase_embed():
     assert cos.min().item() >= 0.999, cos
 
 
+class Split:
+    """Labels, cameras and sequences of a subset of a split."""
+
+    def __init__(self, ds, rows):
+        self.labels, self.cams, self.seqs = (ds.labels[rows], ds.cams[rows],
+                                             ds.seqs[rows])
+
+
+def market_splits():
+    """Query and gallery of Market-1501's size, made by the port's
+    `synthetic_dataset` (the two splits in two threads) with one palette,
+    so that ids match across the splits. Each identity's copies cycle over
+    the 6 cameras, the queries' 3 cameras after the gallery's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from reid_tpu_torch.data import synthetic_dataset
+
+    def make(n, seed, shift):
+        ds = synthetic_dataset(n, num_pids=N_IDS, height=256, width=128,
+                               num_cams=N_CAMS, seed=seed, palette_seed=0)
+        ds.records = [(p, pid, (i // N_IDS + shift) % N_CAMS, 0)
+                      for i, (p, pid, _, _) in enumerate(ds.records)]
+        return ds
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        query, gallery = pool.map(lambda a: make(*a), ((N_QUERY, 1, 3),
+                                                       (N_GALLERY, 2, 0)))
+    return query, gallery, time.perf_counter() - t0
+
+
+def phase_retrieval(query, gallery, make_s, profile_to=None, int8=False):
+    """The retrieval path once, at the operating point (with `int8`, its
+    `--int8` serving embed), with the launch counts zeroed just before and
+    read just after; traced with torch.profiler when `profile_to` names a
+    file."""
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.ops import _lib
+
+    argv = ["--search_option", "dense", "--bs", "64"] + (
+        ["--int8"] if int8 else [])
+    timing, keep = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    def run():
+        return cli.inference(argv, device="cuda",
+                             splits=(query, gallery, N_CLASSES),
+                             timing=timing, keep=keep)
+
+    t0 = time.perf_counter()
+    busy_ms = None
+    if profile_to:
+        (cmc, mean_ap), busy_ms = profiled(run, profile_to)
+    else:
+        cmc, mean_ap = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    sites = {f"{n} {list(s)}": c
+             for (n, s), c in _lib.site_launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    dists = keep.pop("dists")
+    n = N_QUERY + N_GALLERY
+    dim = keep["qf"].shape[1]
+    emit("retrieval --int8" if int8 else "retrieval", n_query=N_QUERY,
+         n_gallery=N_GALLERY, dim=dim, cmc1=float(cmc[0]),
+         cmc5=float(cmc[4]), cmc10=float(cmc[9]), mAP=mean_ap,
+         stage_s=timing, wall_s=wall, data_s=make_s, peak_mem_gb=peak / 1e9,
+         device_kernel_ms=busy_ms, launches=counts, site_launches=sites)
+    assert dim == 512 + N_CLASSES and tuple(dists.shape) == (n, n)
+    assert bool(torch.isfinite(dists).all()) and float(dists.min()) >= 0.0
+    assert np.all(np.isfinite(cmc)) and np.all(np.diff(cmc) >= 0)
+    assert 0.0 < mean_ap <= 1.0 and cmc[-1] <= 1.0
+    for k in ("sqeuclidean", "l1") + (
+            ("conv3x3_s8", "se_basic_block_s8") if int8 else ()):
+        assert counts.get(k, 0) > 0, (k, counts)
+    del dists
+    return keep, counts, sites
+
+
+def retrieval_batch(query, gallery, dev):
+    """The `--int8` retrieval trunk's calibration batch (the first 32
+    gallery images and their flips, as `cli.inference` calibrates) and one
+    embed batch (--bs 64 query images and their flips: 128)."""
+    import torch
+    from reid_tpu_torch.data.transforms import inference_batch
+
+    def both(split, k):
+        x = inference_batch(torch.from_numpy(
+            split.gather(np.arange(k))["images"]).to(dev))
+        return torch.cat([x, torch.flip(x, dims=(2,))])
+    return both(gallery, 32), both(query, 64)
+
+
+def phase_distance_kernels(kind, keep):
+    """K6 and K7 against their plain versions on the operands the first
+    Jaccard call gave them, timed beside the plain version, the bound and
+    torch.cdist: the run's de-biased unit features (K6), and the V encoding
+    recomputed from them and their ranking (K7)."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.ops import distance as dist
+    from reid_tpu_torch.ops import rerank
+    from reid_tpu_torch.ops.camera import diminish_camera_bias
+    from reid_tpu_torch.utils.timing import StageTimer
+
+    rows = []
+    with full_f32(), torch.inference_mode():
+        # K6: one query block of the first Jaccard's initial ranking
+        cams = torch.cat([torch.as_tensor(keep["gallery_cams"]),
+                          torch.as_tensor(keep["query_cams"])]).cuda()
+        feats = diminish_camera_bias(torch.cat([keep["gf"], keep["qf"]]),
+                                     cams)
+        feats = (feats / feats.norm(dim=1, keepdim=True)).contiguous()
+        x = feats[:1024]
+        m, d = x.shape
+        n = feats.shape[0]
+        got = dist.sqeuclidean(x, feats)
+        want = dist.sqeuclidean_plain(x, feats)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        assert bool((err <= 1e-4 + 1e-4 * want.abs()).all()), err.max()
+        top_g = torch.sort(got, dim=1, stable=True).indices[:, :20]
+        top_w = torch.sort(want, dim=1, stable=True).indices[:, :20]
+        topk_share = (top_g == top_w).all(1).double().mean().item()
+        self_first = (top_g[:, 0] == torch.arange(m, device="cuda")).double()\
+            .mean().item()
+        del got, want, top_g, top_w
+        bms, by = bound(2 * m * n * d, 4 * (m * d + n * d + m * n), kind,
+                        "fp32")
+        rows.append(dict(
+            name="sqeuclidean topk block", route="cuda", source=DIST_SOURCE,
+            replaces=K6_REPLACES, site=[m, n, d], path="retrieval",
+            max_abs_err=err.max().item(), top20_rows_equal=topk_share,
+            self_first=self_first,
+            ms=time_ms(lambda: dist.sqeuclidean(x, feats)),
+            plain_ms=time_ms(lambda: dist.sqeuclidean_plain(x, feats)),
+            library_ms=time_ms(lambda: torch.cdist(x, feats)),
+            bound_ms=bms, bound_by=by))
+        del err, x
+        emit(f"kernel {rows[-1]['name']}", **rows[-1])
+
+        # K7: a 1,024-row slab of the min-sum, then one full call
+        _, rank = dist.topk_neighbors(feats, feats, k=20)
+        v = rerank._v_encoding(feats, rank, 20, 6, StageTimer(None, "cuda"))
+        del feats, rank
+        nnz = (v > 0).sum(1)
+        slab = v[:1024]
+        m, (n, d) = slab.shape[0], v.shape
+        got = dist.l1(slab, v)
+        want = dist.l1_plain(slab, v)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        assert bool((err <= 1e-5 + 1e-5 * want.abs()).all()), err.max()
+        del got, want
+        bms, by = bound(2 * m * n * d, 4 * (m * d + n * d + m * n), kind,
+                        "fp32_alu")
+        row = dict(
+            name="l1 min-sum slab", route="cuda", source=DIST_SOURCE,
+            replaces=K7_REPLACES, site=[m, n, d], path="retrieval",
+            v_nonzeros_per_row_mean=nnz.double().mean().item(),
+            v_nonzeros_per_row_max=int(nnz.max()),
+            max_abs_err=err.max().item(),
+            ms=time_ms(lambda: dist.l1(slab, v)),
+            plain_ms=time_ms(lambda: dist.l1_plain(slab, v), reps=2, warm=1),
+            library_ms=time_ms(lambda: torch.cdist(slab, v, p=1), reps=2,
+                               warm=1),
+            bound_ms=bms, bound_by=by)
+        del err, nnz
+        row["full_ms"] = time_ms(lambda: dist.l1(v, v), reps=1, warm=0)
+        row["full_bound_ms"], _ = bound(2 * n * n * d,
+                                        4 * (2 * n * d + n * n), kind,
+                                        "fp32_alu")
+        rows.append(row)
+        del v, slab
+        emit(f"kernel {row['name']}", **row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_retrieval_cpu(keep, query, gallery):
+    """The post-embed half on the card (kernels) and on the CPU (plain
+    versions), on the same 1,024 features (ids 0-31), dense and sparse.
+
+    Near-ties in the top-k ranking make this comparison chaotic where it
+    is not a test of arithmetic: a pair of neighbours whose distances lie
+    within rounding of each other can swap places, which moves them across
+    the k1/2 + 1 and k2 cuts and changes whole rows of J, and DBSCAN plus
+    smoothing pull each cluster's embeddings together (0.9 x the mean), so
+    the second Jaccard meets ten times closer ties. So the end-to-end
+    results are held loosely (CMC within 1/Q at every rank, mAP within
+    1e-2) and the share of J entries within 1e-4 is reported without a
+    limit, and the arithmetic is held tightly on its own: from the same
+    de-biased features and the same ranking, the card's Jaccard equals the
+    CPU's within 1e-5 everywhere, and the two rankings hold the same
+    top-20 sets on >= 99.9% of rows."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.config import Config, RetrievalConfig
+    from reid_tpu_torch.eval.inference import evaluate_features
+    from reid_tpu_torch.ops import _lib, rerank
+    from reid_tpu_torch.ops.camera import diminish_camera_bias
+    from reid_tpu_torch.ops.distance import topk_neighbors
+
+    qr = np.flatnonzero(query.labels < 32)
+    gr = np.flatnonzero(gallery.labels < 32)
+    qf, gf = keep["qf"][qr].cpu(), keep["gf"][gr].cpu()
+    q, g = Split(query, qr), Split(gallery, gr)
+    out = {}
+    for option in ("dense", "sparse"):
+        cfg = Config(retrieval=RetrievalConfig(search_option=option))
+        res = []
+        for dev in ("cuda", "cpu", "cuda"):
+            k = {}
+            t0 = time.perf_counter()
+            _lib.reset_launch_counts()
+            with full_f32(), torch.inference_mode():
+                cmc, mean_ap = evaluate_features(
+                    qf.to(dev), gf.to(dev), q, g, cfg, verbose=False, keep=k)
+            res.append((cmc, mean_ap, k["dists"].cpu(),
+                        time.perf_counter() - t0, _lib.launch_counts()))
+        (cmc_g, map_g, j_g, s_g, n_g), (cmc_c, map_c, j_c, s_c, n_c), \
+            (cmc_r, map_r, j_r, _, _) = res
+        err = (j_g - j_c).abs()
+        # the card repeats itself bit for bit
+        repeat = bool(torch.equal(j_g, j_r) and np.array_equal(cmc_g, cmc_r)
+                      and map_g == map_r)
+        out[option] = dict(rows=len(qr) + len(gr),
+                           share_within_1e4=(err <= 1e-4).double().mean()
+                           .item(), max_abs_err=err.max().item(),
+                           cmc_max_diff=float(np.abs(cmc_g - cmc_c).max()),
+                           mAP_card=map_g, mAP_cpu=map_c, card_s=s_g,
+                           cpu_s=s_c, card_launches=n_g,
+                           card_repeat_bit_equal=repeat)
+        assert not n_c and n_g.get("sqeuclidean", 0) > 0, (n_c, n_g)
+        assert repeat, out[option]
+        assert out[option]["cmc_max_diff"] <= 1.0 / len(qr) + 1e-6
+        assert abs(map_g - map_c) <= 1e-2, out[option]
+
+    # the arithmetic alone: same features, same ranking
+    with full_f32(), torch.inference_mode():
+        cams = torch.as_tensor(np.concatenate([g.cams, q.cams]))
+        x = diminish_camera_bias(torch.cat([gf, qf]), cams)
+        x = x / x.norm(dim=1, keepdim=True)
+        _, r_c = topk_neighbors(x, x, k=20)
+        _, r_g = topk_neighbors(x.cuda(), x.cuda(), k=20)
+        r_g = r_g.cpu()
+        same = {"order": (r_g == r_c).all(1).double().mean().item(),
+                "set": (torch.sort(r_g, 1).values == torch.sort(r_c, 1).values
+                        ).all(1).double().mean().item()}
+        for s in (None, 512):
+            j_g = rerank._jaccard_from_rank(x.cuda(), r_c.cuda(), 20, 6,
+                                            sparse_s=s).cpu()
+            j_c = rerank._jaccard_from_rank(x, r_c, 20, 6, sparse_s=s)
+            same[f"jaccard_max_abs_err_s{s}"] = (j_g - j_c).abs().max().item()
+            assert same[f"jaccard_max_abs_err_s{s}"] <= 1e-5, same
+    assert same["set"] >= 0.999, same
+    emit("retrieval vs cpu", **out, same_ranking=same)
+    return out
+
+
+def phase_embed_retrieval(query):
+    """The f32 and the int8 TTA serving embed of the retrieval path, card
+    against CPU, on 16 query images: the same weights and, for int8, the
+    same QuantState."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.eval.serving import (calibrate_serving_qstate,
+                                             make_embed_fn,
+                                             make_int8_embed_fn)
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils.quantize import QuantState
+
+    imgs = torch.from_numpy(query.gather(np.arange(16))["images"])
+    res = {}
+    with full_f32(), torch.inference_mode():
+        cpu = build_model("seres18", num_classes=N_CLASSES, device="cpu")
+        card = build_model("seres18", num_classes=N_CLASSES, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        qs = calibrate_serving_qstate(cpu, imgs)
+        qs_card = QuantState({k: v.cuda() for k, v in qs.kernels.items()},
+                             {k: v.cuda() for k, v in qs.w_scales.items()},
+                             qs.act_scales)
+        for name, f_cpu, f_card, lim in (
+                ("f32", make_embed_fn(cpu), make_embed_fn(card), 0.99999),
+                ("int8", make_int8_embed_fn(cpu, qstate=qs),
+                 make_int8_embed_fn(card, qstate=qs_card), 0.999)):
+            e_c = f_cpu(imgs.float())
+            e_g = f_card(imgs.float().cuda()).cpu()
+            cos = (e_c * e_g).sum(1) / (e_c.norm(dim=1) * e_g.norm(dim=1))
+            res[name] = dict(min_cosine=cos.min().item(), threshold=lim)
+            assert cos.min().item() >= lim, (name, cos)
+    emit("embed retrieval", images=16, **res)
+
+
+def set_launches(rows, sites):
+    """Each K1/K2 row's launches at its call site in one run of its path."""
+    for row in rows:
+        kname = row["name"].split()[0]
+        row["launches"] = sites.get(f"{kname} {row['site']}", 0)
+        assert row["launches"] > 0, row
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="trace both track runs with torch.profiler into "
-                         "chiprun_out/profile_{chunked,step}.txt")
+                    help="trace both track runs and the retrieval run with "
+                         "torch.profiler into chiprun_out/profile_{chunked,"
+                         "step,retrieval}.txt")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
     import reid_tpu_torch  # noqa: F401  (fails outside the repo)
+    from reid_tpu_torch.cli import full_f32
 
     smi, kind = phase_device()
     phase_build()
-    rows = phase_kernels(kind, 2048)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    crops = torch.randn((2048, 256, 128, 3), generator=gen, device=dev)
+    rows = phase_kernels(kind, torch.bfloat16, crops[:32], crops, "track")
+    del crops
     with tempfile.TemporaryDirectory() as tmp:
         chunked, _ = phase_track(tmp, 64, 32, 8, args.profile)
     phase_embed()
-    sites = chunked["site_launches"]
-    for row in rows:
-        kname = row["name"].split()[0]
-        row["launches"] = sites.get(f"{kname} {row['site']}", 0)
+    set_launches(rows, chunked["site_launches"])
+
+    query, gallery, make_s = market_splits()
+    keep, counts, _ = phase_retrieval(
+        query, gallery, make_s, os.path.join(OUT_DIR, "profile_retrieval.txt")
+        if args.profile else None)
+    keep.update(query_cams=query.cams, gallery_cams=gallery.cams)
+    keep8, _, sites8 = phase_retrieval(query, gallery, make_s, int8=True)
+    cos = (keep8["gf"] * keep["gf"]).sum(1) / (
+        keep8["gf"].norm(dim=1) * keep["gf"].norm(dim=1))
+    emit("retrieval int8 vs f32 embed", gallery_min_cosine=cos.min().item(),
+         gallery_mean_cosine=cos.mean().item())
+    del keep8, cos
+    with full_f32():
+        calib, batch = retrieval_batch(query, gallery, dev)
+        rows8 = phase_kernels(kind, torch.float32, calib, batch,
+                              "retrieval --int8", suffix=" f32")
+    del calib, batch
+    set_launches(rows8, sites8)
+    rows += rows8
+    dist_rows = phase_distance_kernels(kind, keep)
+    for row in dist_rows:
+        row["launches"] = counts.get(row["name"].split()[0], 0)
         assert row["launches"] > 0, row
+    rows += dist_rows
+    phase_retrieval_cpu(keep, query, gallery)
+    del keep
+    phase_embed_retrieval(query)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{k: row[k] for k in keys} for row in rows]}

@@ -1,22 +1,34 @@
-"""Command-line entry of the port: the track serve path.
+"""Command-line entries of the port: tracking and retrieval evaluation.
 
-Counterpart of `reid_tpu/cli.py:track_main` with the same flags: MOT
-detections + frames in -> SERes18 embed (bf16, or int8 with `--int8`) ->
-tracker -> MOT txt. Runs on the card; `track_main(argv, device="cpu")` runs
-the same program on the CPU with the kernels' plain versions.
+Counterparts of `reid_tpu/cli.py:track_main` and `inference_main` with the
+same flags. Both run on the card; `device="cpu"` runs the same program on
+the CPU with the kernels' plain versions.
+
+  * `track_main`: MOT detections + frames in -> SERes18 embed (bf16, or
+    int8 with `--int8`) -> tracker -> MOT txt.
+  * `inference_main`: a Market-style split -> SERes18 embeddings (f32 with
+    TTA flip, or the int8 serving embed with `--int8`) -> camera de-bias ->
+    k-reciprocal Jaccard re-rank -> DBSCAN + tracklet smoothing -> re-rank
+    -> CMC and mAP (`--no-rerank`: dot-product scores). `--ckpt` is the
+    `.npz` of the flax variable tree.
 
 Flags that belong to later slices of the port raise an error naming the
-slice: `--gt` (scoring), `--save_vid` (annotation), the built-in detectors
-(no `--detections`), and camera-motion compensation (`--gmc on`, or
-botsort's default; `--gmc off` works).
+slice: for tracking `--gt` (scoring), `--save_vid` (annotation), the
+built-in detectors (no `--detections`) and camera-motion compensation
+(`--gmc on`, or botsort's default; `--gmc off` works); for retrieval
+`--artifact` (a serving artifact), `--search_option ivf` and
+`--attributes_mat`. The port's retrieval runs on one device.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
+    python -m reid_tpu_torch.image_reid_inference --root market1501 \
+        --ckpt model.npz
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -151,6 +163,19 @@ def build_embed(backbone: str, num_classes: int, crop_hw, device,
     return embed_fn, net
 
 
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for matmuls and cuDNN convolutions; the caller's settings
+    come back afterwards."""
+    backends = torch.backends
+    tf32 = (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32)
+    backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = tf32
+
+
 @torch.inference_mode()
 def track(argv=None, device: Optional[str] = "cuda"):
     """Track a detection file over a frame directory and write the MOT
@@ -160,15 +185,9 @@ def track(argv=None, device: Optional[str] = "cuda"):
     if not args.source and args.frames_dir:
         args.source = args.frames_dir
     _later(p, args)
-    # the crop products and the tracker run in full f32; the caller's TF32
-    # settings come back afterwards
-    backends = torch.backends
-    tf32 = (backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32)
-    backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = False
-    try:
+    # the crop products and the tracker run in full f32
+    with full_f32():
         return _track(args, device)
-    finally:
-        backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = tf32
 
 
 def _track(args, device):
@@ -233,6 +252,129 @@ def _track(args, device):
 def track_main(argv=None, device: Optional[str] = "cuda") -> int:
     """`track`, returning the number of MOT rows written."""
     return sum(int(np.sum(r["valid"])) for r in track(argv, device).results)
+
+
+def _inference_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("image_reid_inference")
+    p.add_argument("--root", default="data")
+    p.add_argument("--dataset", default="market1501",
+                   choices=["market1501", "dukemtmc", "veri"])
+    p.add_argument("--backbone", default="seres18")
+    p.add_argument("--ckpt", default="",
+                   help=".npz of the flax variable tree, '/'-joined keys")
+    p.add_argument("--artifact", default="")
+    p.add_argument("--bs", type=int, default=64)
+    p.add_argument("--height", type=int, default=0,
+                   help="override input height (0 = dataset default)")
+    p.add_argument("--width", type=int, default=0)
+    p.add_argument("--no-rerank", action="store_true")
+    p.add_argument("--rerank_sparse_s", type=int, default=0,
+                   help="top-S Jaccard min-sum (0 = exact dense path)")
+    p.add_argument("--search_option", default="auto",
+                   choices=["auto", "dense", "sparse", "ivf"],
+                   help="gallery-size search policy (the faiss "
+                        "search_option role): auto picks dense or top-S "
+                        "by N")
+    p.add_argument("--eps", type=float, default=0.55)
+    p.add_argument("--attributes_mat", default="")
+    p.add_argument("--int8", action="store_true",
+                   help="serve the embed post-training-quantized to int8, "
+                        "calibrated on the first gallery batch")
+    return p
+
+
+def _later_inference(p: argparse.ArgumentParser, args) -> None:
+    if args.artifact:
+        p.error("--artifact: serving artifacts (StableHLO in reid_tpu; "
+                "torch.export here) are ported in a later slice; use --ckpt")
+    if args.search_option == "ivf":
+        p.error("--search_option ivf: IVF search (ops/ivf.py) is ported in "
+                "a later slice")
+    if args.attributes_mat:
+        p.error("--attributes_mat: the Market attribute prior "
+                "(eval/attributes.py) is ported in a later slice")
+
+
+def _base_cfg(args, num_classes: int):
+    """The retrieval run's configuration (`reid_tpu/cli.py:_base_cfg`,
+    the fields inference reads)."""
+    from .config import (Config, DataConfig, ModelConfig, RetrievalConfig,
+                         TrainConfig)
+
+    sizes = {"market1501": (256, 128), "dukemtmc": (256, 128),
+             "veri": (224, 224)}
+    h, w = sizes.get(args.dataset, (256, 128))
+    h, w = args.height or h, args.width or w
+    n_cams = {"market1501": 6, "dukemtmc": 8, "veri": 20}.get(args.dataset, 6)
+    return Config(
+        model=ModelConfig(backbone=args.backbone, num_classes=num_classes,
+                          num_cams=n_cams),
+        train=TrainConfig(batch_size=args.bs),
+        data=DataConfig(dataset=args.dataset, root=args.root, height=h,
+                        width=w),
+        retrieval=RetrievalConfig(dbscan_eps=args.eps,
+                                  rerank_sparse_s=args.rerank_sparse_s,
+                                  search_option=args.search_option))
+
+
+@torch.inference_mode()
+def inference(argv=None, device: Optional[str] = "cuda", splits=None,
+              timing=None, keep=None):
+    """The body of `inference_main`; returns (CMC, mAP).
+
+    `splits` = (query, gallery, num_train_pids) takes the place of the
+    dataset under `--root` (in-memory splits); without `--ckpt` such a run
+    uses a random init from a generator seeded 0. `timing` and `keep` are
+    handed to `run_inference` (stage seconds; embeddings and distances)."""
+    from .data.dataset import ReIDDataset
+    from .eval.inference import run_inference
+    from .models import build_model
+
+    p = _inference_parser()
+    args = p.parse_args(argv)
+    _later_inference(p, args)
+    if splits is None:
+        if not args.ckpt:
+            p.error("need --ckpt (the .npz of the flax variable tree)")
+        from .data.datasets import build_dataset
+        raw = build_dataset(args.dataset, args.root)
+        num_pids = raw.num_train_pids
+    else:
+        query, gallery, num_pids = splits
+    cfg = _base_cfg(args, num_pids)
+    if splits is None:
+        h, w = cfg.data.height, cfg.data.width
+        query = ReIDDataset(raw.query, num_pids, h, w)
+        gallery = ReIDDataset(raw.gallery, num_pids, h, w)
+
+    # the reference embeds and re-ranks in full f32 (the JAX CLI builds the
+    # model in f32)
+    with full_f32():
+        model = build_model(cfg.model.backbone, num_classes=num_pids,
+                            num_cams=cfg.model.num_cams,
+                            dtype=torch.float32, device=device)
+        if args.ckpt:
+            from .utils.flax_bridge import load_flax_variables
+            load_flax_variables(model, args.ckpt)
+        embed_fn = None
+        if args.int8:
+            from .eval.serving import make_int8_embed_fn
+            # the eval loader's first batch of min(bs, 32), wrap-padded
+            cb, idx = min(args.bs, 32), np.arange(len(gallery))
+            first = np.concatenate([idx[:cb], idx[:cb - len(idx[:cb])]])
+            calib = torch.from_numpy(gallery.gather(first)["images"]).to(
+                device)
+            embed_fn = make_int8_embed_fn(model, calib,
+                                          tta_flip=cfg.retrieval.tta_flip)
+        return run_inference(model, query, gallery, cfg,
+                             rerank=not args.no_rerank, embed_fn=embed_fn,
+                             device=device, timing=timing, keep=keep)
+
+
+def inference_main(argv=None, device: Optional[str] = "cuda"):
+    """Retrieval evaluation (ref image_reid_inference.py main :161-320);
+    returns (CMC, mAP)."""
+    return inference(argv, device)
 
 
 if __name__ == "__main__":

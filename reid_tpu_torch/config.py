@@ -1,9 +1,11 @@
-"""Tracker configuration of the port.
+"""Configuration of the port.
 
-An own copy of `reid_tpu/config.py:TrackerConfig` (fields, defaults and
-their notes unchanged; a test holds the two equal), so that the port
-imports nothing of the JAX package. The measured numbers in the notes were
-taken on a TPU v5e by the JAX package.
+Own copies of `reid_tpu/config.py`'s `TrackerConfig` and `RetrievalConfig`
+(fields, defaults and their notes unchanged; tests hold them equal), and of
+the fields of `ModelConfig`, `TrainConfig` and `DataConfig` that the
+retrieval CLI reads, so that the port imports nothing of the JAX package.
+The measured numbers in the notes were taken on a TPU v5e by the JAX
+package.
 """
 
 from __future__ import annotations
@@ -118,3 +120,59 @@ class TrackerConfig:
                                        # `valid`. cap >= #valid per frame is
                                        # output-identical. None = crop every
                                        # slot.
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    backbone: str = "seres18"          # factory key (models/factory.py)
+    num_classes: int = 751             # Market1501 train ids
+    num_cams: int = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 64               # also the eval batch
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    dataset: str = "market1501"
+    root: str = "data"
+    height: int = 256                  # ref data_transforms.py Market sizes
+    width: int = 128
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    k1: int = 20                       # k-reciprocal (ref faiss_utils.py:149)
+    k2: int = 6
+    lambda_value: float = 0.3
+    dbscan_eps: float = 0.55           # ref image_reid_inference.py:290
+    dbscan_min_samples: int = 10
+    cam_bias_lambda: float = 0.05      # ridge reg of camera whitening (ref la=0.05)
+    tta_flip: bool = True
+    smooth_tracklet_alpha: float = 0.1 # ref inference_utils.py:27
+    # top-S approximate Jaccard min-sum (0 = exact dense path). Big-gallery
+    # mode: 2.1x at N=23k with S=256; exact when the k-reciprocal expansion
+    # support fits in S (ops/rerank.py _minsum_topk).
+    rerank_sparse_s: int = 0
+    # gallery-size search policy (ops/policy.py — the faiss search_option
+    # 0-3 role, ref faiss_utils.py:121-181): "auto" picks dense / top-S
+    # sparse by N (IVF is explicit opt-in only — measured slower than the
+    # brute-force MXU kNN); explicit "dense"/"sparse"/"ivf" override.
+    search_option: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    retrieval: RetrievalConfig = dataclasses.field(
+        default_factory=RetrievalConfig)
+    tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

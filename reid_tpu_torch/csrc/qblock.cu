@@ -1,5 +1,7 @@
 // se_basic_block_s8: the whole stride-1 SE basic block in int8, bf16 in and
-// bf16 out, as a short sequence of launches on one stream.
+// bf16 out (the track path's bf16 trunk) or f32 in and f32 out (the
+// retrieval path's f32 trunk), as a short sequence of launches on one
+// stream.
 //
 // Replaces the TPU kernel reid_tpu/ops/qblock.py:se_basic_block_s8
 // (_qblock_kernel), which keeps the block's weights and a slab of images
@@ -16,7 +18,8 @@
 //   4. per-image channel means of y2 (the SE squeeze);
 //   5. the SE gate per image: bf16 fc1, ReLU, bf16 fc2, sigmoid;
 //   6. the residual: x itself, or the int8 1x1 down conv on the GEMM core
-//      (epilogue acc*ad + cd), and out = relu(y2*gate + branch) as bf16.
+//      (epilogue acc*ad + cd), and out = relu(y2*gate + branch) in x's
+//      type.
 //
 // What bounds it: at B = 2048 the two convs are 0.6-2.5 T int8 operations
 // per block, far above the ~1 GB of f32 intermediates, so the tensor-core
@@ -33,20 +36,32 @@ constexpr int kRedThreads = 256;
 constexpr int kRedChans = 32;
 constexpr int kRedStripes = kRedThreads / kRedChans;
 
-// x (n bf16) -> q1 = quant(x*inv1), and q2 = quant(x*inv2) when q2 != null.
-__global__ void quant_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                  long long n, float inv1, int8_t* q1,
-                                  float inv2, int8_t* q2) {
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ void store_rn(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_rn(float* p, float v) { *p = v; }
+
+// x (n values of T, bf16 or f32) -> q1 = quant(x*inv1), and
+// q2 = quant(x*inv2) when q2 != null. Eight values per thread.
+template <typename T>
+__global__ void quant_kernel(const T* __restrict__ x, long long n, float inv1,
+                             int8_t* q1, float inv2, int8_t* q2) {
   const long long i =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 8;
   if (i >= n) return;
-  const uint4 raw = *reinterpret_cast<const uint4*>(x + i);
-  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  alignas(16) T v[8];
+#pragma unroll
+  for (int j = 0; j < static_cast<int>(8 * sizeof(T) / 16); ++j)
+    reinterpret_cast<uint4*>(v)[j] = reinterpret_cast<const uint4*>(x + i)[j];
   alignas(8) int8_t a[8];
   alignas(8) int8_t b[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const float f = __bfloat162float(v[j]);
+    const float f = to_f32(v[j]);
     a[j] = quant_s8(f, inv1);
     b[j] = q2 ? quant_s8(f, inv2) : 0;
   }
@@ -149,21 +164,21 @@ __global__ void se_gate_kernel(const float* __restrict__ pooled,
   }
 }
 
-// out = relu(y2 * gate[img, c] + branch) as bf16, where branch is the f32
-// down-conv output when given, else the bf16 block input.
+// out = relu(y2 * gate[img, c] + branch) in T, where branch is the f32
+// down-conv output when given, else the block input x (also T).
+template <typename T>
 __global__ void se_residual_kernel(const float* __restrict__ y2,
                                    const float* __restrict__ gate,
                                    const float* __restrict__ branch_f32,
-                                   const __nv_bfloat16* __restrict__ x, int hw,
-                                   int c, long long n,
-                                   __nv_bfloat16* __restrict__ out) {
+                                   const T* __restrict__ x, int hw, int c,
+                                   long long n, T* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int ch = static_cast<int>(i % c);
   const int img = static_cast<int>(i / (static_cast<long long>(hw) * c));
-  const float br = branch_f32 ? branch_f32[i] : __bfloat162float(x[i]);
+  const float br = branch_f32 ? branch_f32[i] : to_f32(x[i]);
   const float v = __fadd_rn(__fmul_rn(y2[i], gate[img * c + ch]), br);
-  out[i] = __float2bfloat16_rn(fmaxf(v, 0.0f));
+  store_rn(out + i, fmaxf(v, 0.0f));
 }
 
 inline unsigned blocks_for(long long n, int per_block) {
@@ -183,7 +198,8 @@ inline unsigned blocks_for(long long n, int per_block) {
 //   hq (M*cout s8), y2 (M*cout f32), stats (2*nimg*cout f32, ibn only),
 //   pooled (nimg*cout f32), gate (nimg*cout f32), branch (M*cout f32, down).
 // w1 (cout, 9*cin), w2 (cout, 9*cout), wd (cout, cin): int8, K ordered
-// (tap, cin). wfc1 (cout, mip), wfc2 (mip, cout): bf16.
+// (tap, cin). wfc1 (cout, mip), wfc2 (mip, cout): bf16. x and out are bf16,
+// or f32 when f32_io != 0.
 extern "C" int reid_se_basic_block_s8(
     const void* x, const void* w1, const void* w2, const void* a1,
     const void* c1, const void* a2, const void* c2, float inv_sx1,
@@ -192,7 +208,7 @@ extern "C" int reid_se_basic_block_s8(
     const void* in_scale, const void* in_bias, void* xq, void* xqd, void* y1,
     void* hq, void* y2, void* stats, void* pooled, void* gate, void* branch,
     void* out, int nimg, int h, int w, int cin, int cout, int mip, int ibn,
-    void* stream_ptr) {
+    int f32_io, void* stream_ptr) {
   using namespace reid;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool down = wd != nullptr;
@@ -202,10 +218,15 @@ extern "C" int reid_se_basic_block_s8(
   const long long n_out = m * cout;
 
   // 1. quantize x (and x for the down branch)
-  quant_bf16_kernel<<<blocks_for(n_in / 8, 256), 256, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), n_in, inv_sx1,
-      static_cast<int8_t*>(xq), inv_sxd,
-      down ? static_cast<int8_t*>(xqd) : nullptr);
+  int8_t* qd = down ? static_cast<int8_t*>(xqd) : nullptr;
+  if (f32_io)
+    quant_kernel<float><<<blocks_for(n_in / 8, 256), 256, 0, stream>>>(
+        static_cast<const float*>(x), n_in, inv_sx1, static_cast<int8_t*>(xq),
+        inv_sxd, qd);
+  else
+    quant_kernel<__nv_bfloat16><<<blocks_for(n_in / 8, 256), 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), n_in, inv_sx1,
+        static_cast<int8_t*>(xq), inv_sxd, qd);
   REID_CHECK(cudaGetLastError());
 
   // 2. conv1 + (BN | IBN-a) + ReLU + requantize
@@ -284,10 +305,17 @@ extern "C" int reid_se_basic_block_s8(
     d.out = branch;
     REID_CHECK(launch_igemm_s8(d, kAffineF32, stream));
   }
-  se_residual_kernel<<<blocks_for(n_out, 256), 256, 0, stream>>>(
-      static_cast<const float*>(y2), static_cast<const float*>(gate),
-      down ? static_cast<const float*>(branch) : nullptr,
-      static_cast<const __nv_bfloat16*>(x), hw, cout, n_out,
-      static_cast<__nv_bfloat16*>(out));
+  const float* br = down ? static_cast<const float*>(branch) : nullptr;
+  if (f32_io)
+    se_residual_kernel<float><<<blocks_for(n_out, 256), 256, 0, stream>>>(
+        static_cast<const float*>(y2), static_cast<const float*>(gate), br,
+        static_cast<const float*>(x), hw, cout, n_out,
+        static_cast<float*>(out));
+  else
+    se_residual_kernel<__nv_bfloat16><<<blocks_for(n_out, 256), 256, 0,
+                                        stream>>>(
+        static_cast<const float*>(y2), static_cast<const float*>(gate), br,
+        static_cast<const __nv_bfloat16*>(x), hw, cout, n_out,
+        static_cast<__nv_bfloat16*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,93 @@
+"""Host prefetch loader with background batch assembly.
+
+Counterpart of `reid_tpu/data/loader.py:make_eval_loader` (ref
+`train_utils.py:21-23` DataLoaderX: a background thread, pinned memory and
+non-blocking copies). A worker thread assembles the next uint8 host
+batches, in pinned memory when the batches go to a card, while the card
+embeds the current one. The last batch is padded by wrapping to the start,
+so every batch has the same shape; callers cut the results back to
+`len(dataset)`. The PK-sampled training loader belongs to the training
+slice.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from .dataset import ReIDDataset
+
+PREFETCH = 2            # host batches assembled ahead of the consumer
+
+
+class PrefetchLoader:
+    """Iterate batches of a ReIDDataset with background prefetch. Each
+    batch is a dict of torch tensors on `device`."""
+
+    def __init__(self, dataset: ReIDDataset, batch_size: int,
+                 indices: np.ndarray, device="cuda"):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.indices = indices
+        self.device = torch.device(device)
+
+    def __len__(self):
+        return -(-len(self.indices) // self.batch_size)
+
+    def _host(self, chunk) -> dict:
+        batch = self.dataset.gather(chunk)
+        pin = self.device.type == "cuda"
+        return {k: (torch.from_numpy(v).pin_memory() if pin
+                    else torch.from_numpy(v)) for k, v in batch.items()}
+
+    def __iter__(self) -> Iterator[dict]:
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        stop = object()
+        closed = threading.Event()
+        failure = []
+
+        def producer():
+            try:
+                n = len(self.indices)
+                for s in range(0, n, self.batch_size):
+                    if closed.is_set():
+                        break
+                    chunk = self.indices[s:s + self.batch_size]
+                    if len(chunk) < self.batch_size:
+                        # pad by wrapping (the same batch shape throughout)
+                        extra = self.indices[: self.batch_size - len(chunk)]
+                        chunk = np.concatenate([chunk, extra])
+                    q.put(self._host(chunk))
+            except BaseException as e:     # re-raised in the consumer
+                failure.append(e)
+            finally:
+                q.put(stop)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        item = None
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                yield {k: v.to(self.device, non_blocking=True)
+                       for k, v in item.items()}
+        finally:
+            # a consumer that stops early: drain until the producer ends
+            closed.set()
+            while item is not stop:
+                item = q.get()
+            t.join()
+        if failure:
+            raise failure[0]
+
+
+def make_eval_loader(dataset: ReIDDataset, batch_size: int,
+                     device="cuda") -> PrefetchLoader:
+    return PrefetchLoader(dataset, batch_size, np.arange(len(dataset)),
+                          device=device)

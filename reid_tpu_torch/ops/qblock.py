@@ -1,4 +1,5 @@
-"""Fused int8 SE basic block (stride 1), bf16 in and bf16 out.
+"""Fused int8 SE basic block (stride 1): bf16 in and out (the bf16 trunk of
+the track path) or f32 in and out (the f32 trunk of retrieval).
 
 Counterpart of `reid_tpu/ops/qblock.py:se_basic_block_s8`. Per block:
 
@@ -155,18 +156,19 @@ def _scratch(shape, dtype, like):
 
 def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
                       out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Fused int8 SE basic block (stride 1): bf16 (B,H,W,Cin) ->
-    (B,H,W,Cout). `p.wd is not None` selects the 1x1 int8 down branch,
-    otherwise Cin == Cout and the identity branch is used. `ibn=True`
-    applies IBN-a after conv1."""
+    """Fused int8 SE basic block (stride 1): (B,H,W,Cin) -> (B,H,W,Cout),
+    bf16 to bf16 or f32 to f32. `p.wd is not None` selects the 1x1 int8
+    down branch, otherwise Cin == Cout and the identity branch is used.
+    `ibn=True` applies IBN-a after conv1."""
     if x.device.type == "cpu":
         return se_basic_block_s8_plain(x, p, ibn, out_dtype)
     b, h, w, cin = x.shape
     cout = p.w2.shape[0]
     mip = p.wfc1.shape[1]
     down = p.wd is not None
-    if x.dtype != torch.bfloat16 or out_dtype != torch.bfloat16:
-        raise TypeError("se_basic_block_s8 takes and returns bfloat16")
+    if x.dtype not in (torch.bfloat16, torch.float32) or out_dtype != x.dtype:
+        raise TypeError("se_basic_block_s8 takes and returns bfloat16, or "
+                        f"float32; got {x.dtype} -> {out_dtype}")
     if not down and cin != cout:
         raise ValueError(f"identity branch needs Cin == Cout, got {cin}, "
                          f"{cout}")
@@ -198,7 +200,7 @@ def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
     pooled = _scratch((b, cout), f32, x)
     gate = _scratch((b, cout), f32, x)
     branch = _scratch((m, cout), f32, x) if down else None
-    out = torch.empty((b, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
 
     def opt(t):
         return _lib.ptr(t) if t is not None else None
@@ -208,7 +210,7 @@ def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
     fn.restype = ctypes.c_int
     vp, fl, ci = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     fn.argtypes = ([vp] * 7 + [fl, fl] + [vp] * 5 + [fl] + [vp] * 13
-                   + [ci] * 7 + [vp])
+                   + [ci] * 8 + [vp])
     err = fn(_lib.ptr(x), _lib.ptr(p.w1), _lib.ptr(p.w2), _lib.ptr(p.a1),
              _lib.ptr(p.c1), _lib.ptr(p.a2), _lib.ptr(p.c2),
              p.inv_sx1, p.inv_sx2, _lib.ptr(p.wfc1), _lib.ptr(p.wfc2),
@@ -220,7 +222,7 @@ def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
              _lib.ptr(xq), opt(xqd), opt(y1), _lib.ptr(hq), _lib.ptr(y2),
              opt(stats), _lib.ptr(pooled), _lib.ptr(gate), opt(branch),
              _lib.ptr(out), b, h, w, cin, cout, mip, int(ibn),
-             _lib.stream_of(x))
+             int(x.dtype == torch.float32), _lib.stream_of(x))
     _lib.check(err, NAME)
     _lib.count_launch(NAME, (h, w, cin, cout, int(ibn)))
     return out

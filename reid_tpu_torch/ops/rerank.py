@@ -1,0 +1,188 @@
+"""k-reciprocal Jaccard re-ranking (Zhong et al., CVPR'17), single device.
+
+Counterpart of `reid_tpu/ops/rerank.py` (`compute_jaccard_distance`,
+`_jaccard_from_rank`, `_minsum_topk_rows`, `jaccard_distance`; the mesh and
+IVF variants belong to later slices). The steps are the reference's:
+
+  1. initial ranking       -> `topk_neighbors` (kernel K6)
+  2. k-reciprocal sets     -> boolean scatter F, R = F & F^T
+  3. local query expansion -> one 0/1 matmul (the 2/3-overlap rule)
+  4. V encoding            -> masked softmax of 2*sim over the expansion set
+  5. query expansion (k2)  -> the mean of each row's k2 first neighbours
+  6. Jaccard min-sum       -> rows of V sum to 1, so
+                              sum_k min(V_i, V_j) = 1 - L1(V_i, V_j) / 2:
+                              one pairwise L1 (kernel K7), or the top-S
+                              sparse gather when asked and exact
+  7. J = 1 - tm / (2 - tm), clipped at 0
+
+Eager PyTorch keeps every tensor alive that a name still holds, where XLA
+reused buffers: at N = 23,100 one (N, N) f32 matrix is 2.1 GB. So each
+intermediate is dropped as soon as the next step has read it, and the last
+steps work in place.
+
+The two 0/1 overlap products are exact in any input precision with an f32
+accumulator (inputs 0 or 1, sums at most k1): on the card they take f16
+operands, which reach the tensor cores; on the CPU f32. Step 5 is the
+reference's averaging matmul A_{k2} @ V computed as the sum of the k2
+gathered rows of V, in ascending neighbour index (the order of a dot over
+the row of A); it needs no (N, N) A and no N^3 product.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..utils.timing import StageTimer
+from .distance import pairwise_l1, topk_neighbors
+
+_MINSUM_ROWS = 128       # rows per gather block of the top-S min-sum
+
+
+def _topk_mask(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Boolean (rows, n) membership mask from top-k index rows (rows, k)."""
+    m = torch.zeros((idx.shape[0], n), dtype=torch.bool, device=idx.device)
+    return m.scatter_(1, idx, True)
+
+
+def _minsum_topk_rows(v_rows: torch.Tensor, v_all: torch.Tensor, s: int
+                      ) -> torch.Tensor:
+    """tm[i, j] = sum_k min(v_rows[i, k], v_all[j, k]) over the top-S
+    support of each v_rows row: per block of `_MINSUM_ROWS` rows, the S
+    support columns are gathered from v_all, (N, rows, S), and reduced with
+    a broadcast min. Exact while every row has at most S nonzeros."""
+    m, n = v_rows.shape[0], v_all.shape[0]
+    val, idx = torch.topk(v_rows, s, dim=1)
+    out = torch.empty((m, n), dtype=torch.float32, device=v_rows.device)
+    for r in range(0, m, _MINSUM_ROWS):
+        vb, ib = val[r:r + _MINSUM_ROWS], idx[r:r + _MINSUM_ROWS]
+        g = v_all[:, ib.reshape(-1)].reshape(n, vb.shape[0], s)
+        out[r:r + _MINSUM_ROWS] = torch.minimum(vb[None], g).sum(-1).T
+        del g
+    return out
+
+
+def _v_encoding(feats: torch.Tensor, initial_rank: torch.Tensor, k1: int,
+                k2: int, stages: StageTimer) -> torch.Tensor:
+    """Steps 2-5: the (N, N) V encoding, rows summing to 1, from unit-norm
+    features and their top-k1 ranking; marks masks, overlap, v and
+    expansion on `stages`."""
+    n = feats.shape[0]
+    k_half = int(round(k1 / 2))          # Python's round: half to even
+    dev = feats.device
+    mm = torch.float16 if dev.type == "cuda" else torch.float32
+
+    # k-reciprocal masks: R[i,j] = j in top(i) and i in top(j)
+    f = _topk_mask(initial_rank, n)
+    r_full = f & f.T
+    f = _topk_mask(initial_rank[:, :k_half + 1], n)
+    r_half = f & f.T
+    del f
+    stages.mark("masks")
+
+    # local expansion: candidate c of R[i] contributes R_h[c] when
+    # |R_h[c] & R[i]| > 2/3 |R_h[c]|
+    rh = r_half.to(mm)
+    sizes_h = r_half.sum(1).to(torch.float32)
+    del r_half
+    rf = r_full.to(mm)
+    overlap = rf @ rh.T                                   # (i, c), exact
+    del rf
+    thresh = torch.tensor(2.0 / 3.0, dtype=torch.float32, device=dev) \
+        * sizes_h
+    cond = r_full & (overlap > thresh[None, :])
+    del overlap
+    grow = cond.to(mm) @ rh
+    del cond, rh
+    expansion = r_full | (grow > 0)
+    del grow, r_full
+    stages.mark("overlap")
+
+    # V: softmax of 2*sim over the expansion set; -dist = 2*sim - 2 and
+    # the constant cancels inside the softmax
+    logits = feats @ feats.T
+    logits.mul_(2.0).masked_fill_(~expansion, float("-inf"))
+    del expansion
+    v = torch.softmax(logits, dim=1)
+    del logits
+    stages.mark("v")
+
+    # query expansion over the k2 original neighbours
+    if k2 != 1:
+        nb = torch.sort(initial_rank[:, :k2], dim=1).values
+        acc = v.index_select(0, nb[:, 0])
+        for c in range(1, k2):
+            acc += v.index_select(0, nb[:, c])
+        del v
+        v = acc.div_(k2)
+        # the min-sum identity below needs row sums of exactly 1
+        v.div_(v.sum(1, keepdim=True))
+    stages.mark("expansion")
+    return v
+
+
+def _jaccard_from_rank(feats: torch.Tensor, initial_rank: torch.Tensor,
+                       k1: int, k2: int, sparse_s: Optional[int] = None,
+                       timing: Optional[dict] = None) -> torch.Tensor:
+    """Shared Jaccard body given unit-norm features + top-k1 ranking. With
+    `timing`, the seconds of its steps go there: masks, overlap (the two
+    0/1 products), v, expansion (k2), minsum (with the final J)."""
+    stages = StageTimer(timing, feats.device)
+    n = feats.shape[0]
+    v = _v_encoding(feats, initial_rank, k1, k2, stages)
+
+    # min-sum: the L1 identity, or the top-S sparse gather while it is
+    # exact (every V row with at most S nonzeros; one host read)
+    if sparse_s is not None and sparse_s < n and \
+            int((v > 0.0).sum(1).max()) <= sparse_s:
+        tm = _minsum_topk_rows(v, v, sparse_s)
+    else:
+        tm = pairwise_l1(v, v).mul_(-0.5).add_(1.0)
+    del v
+    jac = 2.0 - tm
+    torch.div(tm, jac, out=jac)
+    jac.neg_().add_(1.0).clamp_(min=0.0)
+    stages.mark("minsum")
+    return jac
+
+
+def compute_jaccard_distance(features: torch.Tensor, k1: int = 20,
+                             k2: int = 6, sparse_s: Optional[int] = None,
+                             timing: Optional[dict] = None) -> torch.Tensor:
+    """Jaccard distance matrix (N, N) float32 (ref faiss_utils.py:149-244).
+    `sparse_s` enables the top-S min-sum, exact whenever each V row has at
+    most S nonzeros and otherwise replaced by the dense path."""
+    feats = features.to(torch.float32)
+    feats = feats / torch.clamp(torch.linalg.norm(feats, dim=1, keepdim=True),
+                                min=1e-12)
+    # k1 columns with self first: the reference's faiss convention
+    stages = StageTimer(timing, feats.device)
+    _, initial_rank = topk_neighbors(feats, feats, k=k1)
+    stages.mark("topk")
+    return _jaccard_from_rank(feats, initial_rank, k1=k1, k2=k2,
+                              sparse_s=sparse_s, timing=timing)
+
+
+def jaccard_distance(features: torch.Tensor, k1: int = 20, k2: int = 6,
+                     sparse_s: Optional[int] = None,
+                     search_option: Optional[str] = None,
+                     timing: Optional[dict] = None) -> torch.Tensor:
+    """The dispatcher `eval/inference.py` calls. `search_option` applies
+    the gallery-size policy (ops/policy.py): "auto" picks dense or top-S
+    sparse by N; "dense" and "sparse" force one. None keeps the legacy
+    behaviour (dense unless `sparse_s` is given). The IVF plan and the
+    multi-device mesh belong to later slices of the port. `timing` gets
+    the seconds of each step (topk, then `_jaccard_from_rank`'s)."""
+    if search_option is not None:
+        from .policy import choose_search
+        plan = choose_search(int(features.shape[0]), search_option,
+                             sparse_s or 0)
+        if plan.strategy == "ivf":
+            raise NotImplementedError(
+                "IVF search (reid_tpu/ops/ivf.py) is ported in a later "
+                "slice; use search_option dense|sparse|auto")
+        sparse_s = plan.sparse_s
+    return compute_jaccard_distance(features, k1=k1, k2=k2,
+                                    sparse_s=sparse_s, timing=timing)
+

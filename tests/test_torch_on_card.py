@@ -15,13 +15,23 @@ Tolerances:
     the kernel's fixed order, so the two agree bit for bit at the shapes
     measured so far; summed in torch's order instead, a mean can differ by
     an ulp and move a requantization tie by one step.
+  * the fused block in f32 (the retrieval path's f32 trunk): the same
+    limits as in bf16, against the plain version in f32.
   * the int8 embed, card against CPU: cosine >= 0.999 per row.
+  * sqeuclidean (K6): rtol = atol = 1e-4 against the plain version (norms
+    plus a cuBLAS f32 matmul with TF32 off): the kernel sums the dot
+    products in another order, about 1e-6 relative apart.
+  * l1 (K7): rtol = atol = 1e-5 against the plain version: only the
+    summation order differs.
+  * smooth_tracklets: a second card run equal to the first bit for bit,
+    and atol = 1e-6 against the CPU (the 0/1 matmuls sum in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from reid_tpu_torch.ops import distance as tdist
 from reid_tpu_torch.ops import launch_counts, reset_launch_counts
 from reid_tpu_torch.ops import qblock as tqb
 from reid_tpu_torch.ops import qconv as tq
@@ -130,6 +140,21 @@ def test_se_basic_block_s8_matches_plain(cuda, flavor):
     within(got.float().cpu().numpy(), want.float().cpu().numpy())
 
 
+@pytest.mark.parametrize("flavor", ["down", "ibn"])
+def test_se_basic_block_s8_f32_matches_plain(cuda, flavor):
+    cin, cout, down, ibn = FLAVORS[flavor]
+    rng = np.random.default_rng(8)
+    p = block_params(rng, cin, cout, down, ibn, cuda)
+    x = torch.from_numpy(rng.normal(size=(3, 8, 6, cin)).astype(
+        np.float32)).to(cuda)
+    got = tqb.se_basic_block_s8(x, p, ibn=ibn, out_dtype=torch.float32)
+    want = tqb.se_basic_block_s8_plain(x, p, ibn=ibn,
+                                       out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    within(got.cpu().numpy(), want.cpu().numpy())
+
+
 def test_se_basic_block_s8_rejects_float32(cuda):
     p = block_params(np.random.default_rng(0), 128, 128, False, False, cuda)
     x = torch.zeros((1, 4, 4, 128), device=cuda)
@@ -163,3 +188,124 @@ def test_int8_embed_on_card_matches_cpu(cuda):
     assert launch_counts()[tqb.NAME] == 4
     cos = torch.nn.functional.cosine_similarity(e_c, e_g.cpu(), dim=1)
     assert cos.min() >= 0.999, cos
+
+
+def test_smooth_tracklets_on_card_repeats_and_matches_cpu(cuda):
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.ops.camera import smooth_tracklets
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(3000, 256)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-1, 400, 3000))
+    with full_f32():
+        a = smooth_tracklets(x.to(cuda), ids.to(cuda))
+        b = smooth_tracklets(x.to(cuda), ids.to(cuda))
+        want = smooth_tracklets(x, ids)
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), atol=1e-6)
+
+
+@pytest.fixture
+def no_tf32():
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (37, 129, 33),
+                                   (300, 1000, 1263), (128, 256, 64)])
+def test_sqeuclidean_matches_plain(cuda, no_tf32, m, n, d):
+    rng = np.random.default_rng(m + n + d)
+    x = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    reset_launch_counts()
+    got = tdist.sqeuclidean(x, y)
+    assert launch_counts()[tdist.NAME_SQ] == 1
+    want = tdist.sqeuclidean_plain(x, y)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (37, 129, 33),
+                                   (200, 300, 2100), (128, 256, 64)])
+def test_l1_matches_plain(cuda, m, n, d):
+    rng = np.random.default_rng(m * n + d)
+    x = torch.from_numpy(rng.random((m, d)).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.random((n, d)).astype(np.float32)).to(cuda)
+    x, y = x / x.sum(1, keepdim=True), y / y.sum(1, keepdim=True)
+    reset_launch_counts()
+    got = tdist.l1(x, y)
+    assert launch_counts()[tdist.NAME_L1] == 1
+    want = tdist.l1_plain(x, y)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_distance_kernels_reject_what_they_cannot_take(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(TypeError):
+        tdist.l1(x.double(), x.double())
+    with pytest.raises(ValueError):
+        tdist.sqeuclidean(x, torch.zeros((4, 9), device=cuda))
+    with pytest.raises(ValueError):
+        tdist.l1(x.T, x.T)
+
+
+def test_topk_neighbors_on_card_matches_cpu(cuda):
+    """The kernel's ranking against the CPU's plain ranking on clustered
+    unit rows; both order ties lowest index first."""
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(20, 64))
+    f = np.repeat(centers, 30, 0) + 0.2 * rng.normal(size=(600, 64))
+    f = torch.from_numpy((f / np.linalg.norm(f, axis=1, keepdims=True)
+                          ).astype(np.float32))
+    d_c, i_c = tdist.topk_neighbors(f, f, k=20, block_q=256)
+    d_g, i_g = tdist.topk_neighbors(f.to(cuda), f.to(cuda), k=20,
+                                    block_q=256)
+    np.testing.assert_allclose(d_g.cpu().numpy(), d_c.numpy(), atol=1e-5)
+    assert (i_g.cpu() == i_c).all(1).float().mean() >= 0.99
+
+
+def test_retrieval_on_card_matches_cpu(cuda):
+    """The post-embed half of retrieval (de-bias, Jaccard with both
+    kernels, DBSCAN, smoothing, Jaccard, CMC/mAP) on the card against the
+    CPU, on the same features: CMC within 1/Q at every rank and mAP within
+    1e-2 end to end (neighbours within rounding of each other may swap
+    across the k-cuts: chip_smoke.py's `phase_retrieval_cpu` explains), and
+    from the same ranking the Jaccard within 1e-5 everywhere."""
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.config import Config
+    from reid_tpu_torch.eval.inference import evaluate_features
+    from reid_tpu_torch.ops import rerank
+
+    class Split:
+        def __init__(self, labels, cams):
+            self.labels, self.cams = labels, cams
+            self.seqs = np.zeros_like(labels)
+
+    rng = np.random.default_rng(4)
+    ids = np.arange(300) % 30
+    f = rng.normal(size=(30, 96))[ids] + 0.6 * rng.normal(size=(300, 96))
+    f = torch.from_numpy(f.astype(np.float32))
+    cams = rng.integers(0, 4, 300)
+    q, g = Split(ids[:60], cams[:60]), Split(ids[60:], cams[60:])
+    out = {}
+    with full_f32(), torch.inference_mode():
+        for dev in ("cpu", cuda):
+            reset_launch_counts()
+            res = evaluate_features(f[:60].to(dev), f[60:].to(dev), q, g,
+                                    Config(), verbose=False)
+            out[str(dev)] = res, launch_counts()
+        x = f / f.norm(dim=1, keepdim=True)
+        _, rank = tdist.topk_neighbors(x, x, k=20)
+        j_c = rerank._jaccard_from_rank(x, rank, 20, 6)
+        j_g = rerank._jaccard_from_rank(x.to(cuda), rank.to(cuda), 20, 6)
+    (cmc_c, map_c), n_c = out["cpu"]
+    (cmc_g, map_g), n_g = out[str(cuda)]
+    assert not n_c and n_g[tdist.NAME_SQ] > 0 and n_g[tdist.NAME_L1] > 0
+    assert np.abs(cmc_g - cmc_c).max() <= 1 / 60 + 1e-6
+    assert abs(map_g - map_c) <= 1e-2
+    np.testing.assert_allclose(j_g.cpu().numpy(), j_c.numpy(), atol=1e-5)
