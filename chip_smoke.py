@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 3 min
+    python3 chip_smoke.py             # on one card, about 4 min
     python3 chip_smoke.py --profile   # the same, tracing the track runs
                                       # and the retrieval run
 
@@ -20,14 +20,27 @@ Phases, one JSON line each:
               same function where there is one. The fused block is also
               compared, without a limit, with its plain version summed in
               torch's order (`share_tight_torch_order`), which shows how
-              much room the limit has when the summation orders differ;
+              much room the limit has when the summation orders differ.
+              At K1's call sites K3-K5 (`conv3x3_s8_ncat`, `_bitshift`,
+              `_dma`) too, each held equal to its plain version and to K1
+              and timed the same way;
+  3b. probe   `reid_tpu_torch.qconv_probe.run()`, the path of K3-K5: the
+              bf16 conv, `torch._int_mm` and K1/K3/K4/K5 at the probe's
+              four layer shapes (B = 512), every kernel exact against its
+              plain version and K1; launch counts zeroed just before the
+              run and read just after it;
   4. track    `reid_tpu_torch.cli.track` (the body of `track_main`, which
               returns the pipeline) on a synthetic MOT16-load
               scene (1920x1080, 50 moving boxes in 64 slots, 128 track
               slots, 256x128 crops, SERes18 with 751 classes, --int8):
               --chunk 32 over 64 frames, then the per-frame step path over
               8 frames; launch counts are zeroed just before each run and
-              read just after it;
+              read just after it. Then the same with botsort and its
+              camera-motion compensation on a scene whose textured
+              background the camera pans by PAN px a frame: the chunked
+              path's device affines within 1 px of the pan and within
+              1e-3 px of the CPU's on the same frames, the step path's
+              (`estimate_affine` on the host) within 1 px of the pan;
   5. embed    the card's int8 embed against the same quantized model on the
               CPU (plain kernel versions), cosine of [feat || logits];
   6. retrieval `reid_tpu_torch.cli.inference` (the body of
@@ -72,7 +85,6 @@ Everything is also written to chiprun_out/chip_smoke.json.
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -80,15 +92,10 @@ import time
 
 import numpy as np
 
+from reid_tpu_torch.utils.timing import bound, peaks, time_ms
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-
-# Dense peaks by card (NVIDIA data sheets): int8 tensor ops/s, f32 flop/s
-# outside the tensor cores (an FMA counts two), bytes/s.
-PEAKS = {"H100 PCIe": dict(int8=1513e12, fp32=51.2e12, bytes=2.0e12),
-         "H100 NVL": dict(int8=1671e12, fp32=60.0e12, bytes=3.9e12),
-         "H200": dict(int8=1979e12, fp32=66.9e12, bytes=4.8e12),
-         "H100": dict(int8=1979e12, fp32=66.9e12, bytes=3.35e12)}
 
 # Call sites of each kernel on the main path: module path (and, for
 # conv3x3_s8, the per-image shape H, W, Cin, Cout).
@@ -97,6 +104,14 @@ K1_SITES = [("block21/conv2", (32, 16, 128, 128)),
 K2_SITES = ["block22", "block32", "block41", "block42"]
 K1_SOURCE, K1_REPLACES = ("reid_tpu_torch/csrc/qconv.cu",
                           "reid_tpu/ops/qconv.py:116")
+# K3-K5: the other forms of K1's convolution, on the qconv probe's path
+VARIANT_SOURCE = "reid_tpu_torch/csrc/qconv_variants.cu"
+VARIANT_REPLACES = {"conv3x3_s8_ncat": "reid_tpu/ops/qconv.py:188",
+                    "conv3x3_s8_bitshift": "reid_tpu/ops/qconv.py:273",
+                    "conv3x3_s8_dma": "reid_tpu/ops/qconv.py:355"}
+# the botsort scene's camera pan in px per frame: one bin of the device
+# estimator's 4x downscaled plane at 1080p in each axis
+PAN = (4, -4)
 K2_SOURCE, K2_REPLACES = ("reid_tpu_torch/csrc/qblock.cu",
                           "reid_tpu/ops/qblock.py:313")
 K6_REPLACES = "reid_tpu/ops/distance.py:85"
@@ -111,43 +126,6 @@ RESULTS = {}
 def emit(phase, **kw):
     RESULTS[phase] = kw
     print(json.dumps({"phase": phase, **kw}), flush=True)
-
-
-def peaks(kind):
-    for key, val in PEAKS.items():
-        if key in kind:
-            return val
-    raise RuntimeError(f"no published peaks for {kind!r}")
-
-
-def time_ms(fn, reps=20, warm=3):
-    """Median of `reps` CUDA-event timings of fn() after `warm` calls."""
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def bound(ops, nbytes, kind, rate="int8"):
-    """The least time in ms: `ops` at the card's `rate` ("int8" tensor ops,
-    "fp32" flops with an FMA as two, "fp32_alu" single f32 instructions
-    such as an add: half the fp32 flop rate) or `nbytes` at its memory
-    rate, whichever is longer."""
-    pk = peaks(kind)
-    per_s = pk["fp32"] / 2 if rate == "fp32_alu" else pk[rate]
-    t_ops, t_bytes = ops / per_s * 1e3, nbytes / pk["bytes"] * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
 
 
 def agreement(got, want, tight=1e-4, loose=5e-2):
@@ -221,10 +199,14 @@ def quantized_trunk(dev, dtype, calib, crops, num_classes=751):
     return qm, seen
 
 
-def phase_kernels(kind, dtype, calib, crops, path, suffix=""):
+def phase_kernels(kind, dtype, calib, crops, path, suffix="",
+                  variants=False):
     """K1 and K2 at each call site of `path`'s quantized trunk (`dtype`
-    in and out), on the inputs that embedding `crops` gives them."""
+    in and out), on the inputs that embedding `crops` gives them; with
+    `variants`, K3-K5 at K1's call sites too, each held equal to its plain
+    version and to K1."""
     import torch
+    from reid_tpu_torch import qconv_probe
     from reid_tpu_torch.ops import qblock, qconv
     from reid_tpu_torch.utils.quantize import _im2col, quantize_input
 
@@ -260,6 +242,30 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix=""):
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bms, bound_by=by, library_ms=lib_ms))
             emit(f"kernel {rows[-1]['name']}", **rows[-1])
+            del want
+            wn = qconv.pack_ncat_weight(mod.mm.wt)
+            for kernel, plain_fn, vname in (
+                    qconv_probe.KERNELS.values() if variants else []):
+                if vname == qconv.NAME:
+                    continue
+                vargs = (xq, mod.mm.wt, wn, mod.scale, dtype)
+                vgot, vwant = kernel(*vargs), plain_fn(*vargs)
+                torch.cuda.synchronize()
+                verr = (vgot.float() - vwant.float()).abs().max().item()
+                assert torch.equal(vgot, vwant), (vname, site, verr)
+                assert torch.equal(vgot, got), (vname, site)
+                del vgot, vwant
+                rows.append(dict(
+                    name=f"{vname} {site}{suffix}", route="cuda",
+                    source=VARIANT_SOURCE, replaces=VARIANT_REPLACES[vname],
+                    path="qconv probe", site=[h, w, cin, cout],
+                    batch=xq.shape[0], out_dtype=str(dtype), max_abs_err=verr,
+                    ms=time_ms(lambda: kernel(*vargs)),
+                    plain_ms=time_ms(lambda: plain_fn(*vargs), reps=3,
+                                     warm=1),
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                emit(f"kernel {rows[-1]['name']}", **rows[-1])
+            del got
         for site in K2_SITES:
             mod = qm.get_submodule(site)
             x = seen[site].contiguous()
@@ -302,25 +308,53 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix=""):
     return rows
 
 
-def write_scene(root, n_frames, n_real=50, hw=(1080, 1920), seed=0):
+def textured_background(rng, h, w, grain=2):
+    """Uniform noise on a grid of `grain` px, bilinearly upsampled: a
+    texture with detail at every scale the GMC estimator samples."""
+    import torch
+    coarse = torch.from_numpy(rng.integers(
+        0, 256, (h // grain + 2, w // grain + 2, 3)).astype(np.float32))
+    up = torch.nn.functional.interpolate(
+        coarse.permute(2, 0, 1)[None], scale_factor=grain, mode="bilinear",
+        align_corners=False)[0].permute(1, 2, 0)[:h, :w]
+    return up.clamp(0, 255).to(torch.uint8).numpy()
+
+
+def write_scene(root, n_frames, n_real=50, hw=(1080, 1920), seed=0,
+                pan=None):
     """MOT16-load scene as .npy frames plus det.txt: 50 boxes of person
-    aspect moving across a noisy background, each painted its own colour."""
+    aspect moving across a noisy background, each painted its own colour.
+    With `pan` = (px, py) the background is a fixed texture that the
+    camera pans across, so its content and the boxes move by (px, py) px
+    per frame."""
     rng = np.random.default_rng(seed)
     h, w = hw
+    px, py = pan or (0, 0)
     heights = np.exp(rng.uniform(np.log(60), np.log(260), n_real))
     widths = heights * 0.41
-    x0 = rng.uniform(0, w - widths - 200, n_real)
-    y0 = rng.uniform(0, h - heights - 10, n_real)
+    x0 = rng.uniform(0, w - widths - 200 - abs(px) * n_frames, n_real)
+    y0 = rng.uniform(max(0, -py * n_frames),
+                     h - heights - 10 - max(0, py * n_frames), n_real)
     vx = rng.normal(0, 3.0, n_real)
     colors = rng.integers(40, 255, (n_real, 3), dtype=np.uint8)
+    if pan:
+        mh, mw = abs(py) * n_frames, abs(px) * n_frames
+        bg = textured_background(rng, h + mh, w + mw)
+        # frame t shows the window at (oy - py*t, ox - px*t)
+        oy, ox = (mh if py > 0 else 0), (mw if px > 0 else 0)
     fdir = os.path.join(root, "frames")
     os.makedirs(fdir)
     lines = []
     for t in range(n_frames):
-        frame = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        if pan:
+            y_t, x_t = oy - py * t, ox - px * t
+            frame = bg[y_t:y_t + h, x_t:x_t + w].copy()
+        else:
+            frame = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
         for j in range(n_real):
-            x = float(np.clip(x0[j] + vx[j] * t, 0, w - widths[j] - 1))
-            y = float(y0[j])
+            x = float(np.clip(x0[j] + (vx[j] + px) * t, 0,
+                              w - widths[j] - 1))
+            y = float(np.clip(y0[j] + py * t, 0, h - heights[j] - 1))
             frame[int(y):int(y + heights[j]), int(x):int(x + widths[j])] = \
                 colors[j]
             lines.append(f"{t + 1},-1,{x:.2f},{y:.2f},{widths[j]:.2f},"
@@ -383,9 +417,11 @@ def run_track(argv, profile_to=None):
     return dict(frames=pipe.frames, rows=rows, distinct_ids=len(ids),
                 timing_ms_per_frame=pipe.timing_summary(),
                 fps=pipe.frames / pipe.timing["total"], wall_s=wall,
-                device_kernel_ms=busy_ms, launches=counts,
+                gmc_s=pipe.timing["gmc"], device_kernel_ms=busy_ms,
+                launches=counts,
                 site_launches={f"{n} {list(s)}": c
-                               for (n, s), c in sites.items()})
+                               for (n, s), c in sites.items()},
+                affines=np.asarray(pipe.affines))
 
 
 def phase_track(tmp, n_frames, chunk, step_frames, profile=False):
@@ -400,16 +436,121 @@ def phase_track(tmp, n_frames, chunk, step_frames, profile=False):
     chunked = run_track(base + ["--chunk", str(chunk), "--save_txt",
                                 os.path.join(tmp, "chunk.txt")],
                         trace("chunked"))
+    chunked.pop("affines")
     emit("track chunked", chunk=chunk, **chunked)
     step = run_track(base + ["--chunk", "1", "--max_frames", str(step_frames),
                              "--save_txt", os.path.join(tmp, "step.txt")],
                      trace("step"))
+    step.pop("affines")
     emit("track step", **step)
     for run, name in ((chunked, "chunked"), (step, "step")):
         assert run["rows"] > 0 and run["distinct_ids"] >= 40, (name, run)
         for k in ("conv3x3_s8", "se_basic_block_s8"):
             assert run["launches"].get(k, 0) > 0, (name, k, run["launches"])
     return chunked, step
+
+
+def phase_gmc(tmp, n_frames, chunk, step_frames):
+    """botsort with camera-motion compensation on a scene panned by PAN px
+    a frame: `--chunk` with the device estimator, then the step path
+    (per-frame `estimate_affine` on the host). The chunked affines must
+    recover the pan within 1 px and equal the CPU's
+    `chunk_affines_translation` of the same frames within 1e-3 px; the
+    step path's within 1 px of the pan."""
+    import torch
+    from reid_tpu_torch.tracking import gmc
+    from reid_tpu_torch.tracking.gmc import chunk_affines_translation
+    from reid_tpu_torch.tracking.sources import iter_frames
+
+    fdir, det = write_scene(tmp, n_frames, pan=PAN)
+    base = ["--detections", det, "--frames_dir", fdir, "--int8",
+            "--max_dets", "64", "--num_classes", "751", "--crop_hw", "256",
+            "128", "--tracking_method", "botsort"]
+    chunk_argv = base + ["--chunk", str(chunk), "--save_txt",
+                         os.path.join(tmp, "botsort_chunk.txt")]
+    chunked = run_track(chunk_argv)
+    # the same run again: cuFFT loaded and its plans made
+    again = run_track(chunk_argv)
+    again.pop("affines")
+    step = run_track(base + ["--chunk", "1", "--max_frames", str(step_frames),
+                             "--save_txt",
+                             os.path.join(tmp, "botsort_step.txt")])
+    aff_c, aff_s = chunked.pop("affines"), step.pop("affines")
+    frames = torch.from_numpy(np.stack([f for _, f in iter_frames(fdir)]))
+    cpu = np.concatenate([chunk_affines_translation(
+        frames[s - 1] if s else frames[0], frames[s:s + chunk]).numpy()
+        for s in range(0, n_frames, chunk)])
+    pan = np.asarray(PAN, np.float32)
+    eye = np.eye(2, dtype=np.float32)
+    # the estimator alone on a warm card: one 32-frame chunk
+    dev_frames = frames[:chunk + 1].cuda()
+    warm_ms = time_ms(lambda: chunk_affines_translation(dev_frames[0],
+                                                        dev_frames[1:]))
+    del dev_frames
+    res = dict(
+        pan=list(PAN), cv2=gmc._HAS_CV2,
+        chunk_max_err_to_pan=float(np.abs(aff_c[1:, :, 2] - pan).max()),
+        chunk_max_err_to_cpu=float(np.abs(aff_c[:, :, 2]
+                                          - cpu[:, :, 2]).max()),
+        chunk_linear_is_identity=bool((aff_c[:, :, :2] == eye).all()),
+        step_max_err_to_pan=float(np.abs(aff_s[1:, :, 2] - pan).max()),
+        gmc_ms_per_chunk=1e3 * chunked["gmc_s"] * chunk / n_frames,
+        gmc_ms_per_chunk_again=1e3 * again["gmc_s"] * chunk / n_frames,
+        fps_again=again["fps"],
+        gmc_ms_per_chunk_warm=warm_ms,
+        step_gmc_ms_per_frame=1e3 * step["gmc_s"] / step_frames)
+    emit("track botsort chunked", chunk=chunk, **chunked)
+    emit("track botsort step", **step)
+    emit("gmc", **res)
+    assert res["chunk_max_err_to_pan"] <= 1.0, res
+    assert res["chunk_max_err_to_cpu"] <= 1e-3, res
+    assert res["chunk_linear_is_identity"], res
+    assert res["step_max_err_to_pan"] <= 1.0, res
+    for run, name in ((chunked, "chunked"), (step, "step")):
+        assert run["rows"] > 0 and run["distinct_ids"] >= 40, (name, run)
+        for k in ("conv3x3_s8", "se_basic_block_s8"):
+            assert run["launches"].get(k, 0) > 0, (name, k, run["launches"])
+    return res
+
+
+def phase_probe(kind):
+    """The qconv probe (`reid_tpu_torch.qconv_probe.run`) at its four
+    configurations, the path of K3-K5: launch counts zeroed just before
+    and read just after. Every kernel row must be exact against its plain
+    version and K1. Returns the kernel rows and the path's counts."""
+    import torch
+    from reid_tpu_torch import qconv_probe
+    from reid_tpu_torch.ops import _lib
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        results = qconv_probe.run()
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    emit("qconv probe", wall_s=time.perf_counter() - t0, launches=counts,
+         configs=results)
+    rows = []
+    for res in results:
+        for row in res["rows"]:
+            if "kernel" not in row:
+                continue
+            assert row["exact"] and row["equals_k1"] and row["plain_exact"], \
+                (res["config"], row)
+            name = row["kernel"]
+            k1 = name == "conv3x3_s8"
+            rows.append(dict(
+                name=f"{name} probe {res['config']}", route="cuda",
+                source=K1_SOURCE if k1 else VARIANT_SOURCE,
+                replaces=K1_REPLACES if k1 else VARIANT_REPLACES[name],
+                path="qconv probe", shape=res["shape"],
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "tops", "x_bf16")}))
+    for name in ("conv3x3_s8",) + tuple(VARIANT_REPLACES):
+        assert counts.get(name, 0) > 0, (name, counts)
+    return rows, counts
 
 
 def phase_embed():
@@ -612,6 +753,9 @@ def phase_distance_kernels(kind, keep):
             bound_ms=bms, bound_by=by)
         del err, nnz
         row["full_ms"] = time_ms(lambda: dist.l1(v, v), reps=1, warm=0)
+        # one call, about 20 s
+        row["full_library_ms"] = time_ms(lambda: torch.cdist(v, v, p=1),
+                                         reps=1, warm=0)
         row["full_bound_ms"], _ = bound(2 * n * n * d,
                                         4 * (2 * n * d + n * n), kind,
                                         "fp32_alu")
@@ -755,8 +899,6 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
-    sys.path.insert(0, ROOT)
-    import reid_tpu_torch  # noqa: F401  (fails outside the repo)
     from reid_tpu_torch.cli import full_f32
 
     smi, kind = phase_device()
@@ -764,12 +906,23 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     crops = torch.randn((2048, 256, 128, 3), generator=gen, device=dev)
-    rows = phase_kernels(kind, torch.bfloat16, crops[:32], crops, "track")
+    rows = phase_kernels(kind, torch.bfloat16, crops[:32], crops, "track",
+                         variants=True)
     del crops
+    torch.cuda.empty_cache()
+    probe_rows, probe_counts = phase_probe(kind)
     with tempfile.TemporaryDirectory() as tmp:
         chunked, _ = phase_track(tmp, 64, 32, 8, args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_gmc(tmp, 64, 32, 8)
     phase_embed()
-    set_launches(rows, chunked["site_launches"])
+    # K1/K2 launches at their call sites on the track path; K3-K5 (here and
+    # in the probe's rows) and K1's probe rows: the probe path's launches
+    track_rows = [r for r in rows if r["path"] == "track"]
+    set_launches(track_rows, chunked["site_launches"])
+    for row in [r for r in rows if r["path"] == "qconv probe"] + probe_rows:
+        row["launches"] = probe_counts[row["name"].split()[0]]
+    rows += probe_rows
 
     query, gallery, make_s = market_splits()
     keep, counts, _ = phase_retrieval(

@@ -5,7 +5,10 @@ same flags. Both run on the card; `device="cpu"` runs the same program on
 the CPU with the kernels' plain versions.
 
   * `track_main`: MOT detections + frames in -> SERes18 embed (bf16, or
-    int8 with `--int8`) -> tracker -> MOT txt.
+    int8 with `--int8`) -> tracker -> MOT txt. Camera-motion compensation
+    (botsort's default, `--gmc on|off`) estimates each chunk's affines on
+    the device; the step path (`--chunk 1`) estimates them per frame on
+    the host.
   * `inference_main`: a Market-style split -> SERes18 embeddings (f32 with
     TTA flip, or the int8 serving embed with `--int8`) -> camera de-bias ->
     k-reciprocal Jaccard re-rank -> DBSCAN + tracklet smoothing -> re-rank
@@ -13,9 +16,8 @@ the CPU with the kernels' plain versions.
     `.npz` of the flax variable tree.
 
 Flags that belong to later slices of the port raise an error naming the
-slice: for tracking `--gt` (scoring), `--save_vid` (annotation), the
-built-in detectors (no `--detections`) and camera-motion compensation
-(`--gmc on`, or botsort's default; `--gmc off` works); for retrieval
+slice: for tracking `--gt` (scoring), `--save_vid` (annotation) and the
+built-in detectors (no `--detections`); for retrieval
 `--artifact` (a serving artifact), `--search_option ivf` and
 `--attributes_mat`. The port's retrieval runs on one device.
 
@@ -100,10 +102,6 @@ def _later(p: argparse.ArgumentParser, args) -> None:
     if not args.detections:
         p.error("the built-in detectors are ported in a later slice; pass "
                 "--detections")
-    method_gmc = args.tracking_method == "botsort"
-    if args.gmc == "on" or (args.gmc == "auto" and method_gmc):
-        p.error("camera-motion compensation (tracking/gmc.py) is ported in "
-                "a later slice; run with --gmc off")
 
 
 def calibration_crops(source: str, crop_hw, device) -> torch.Tensor:

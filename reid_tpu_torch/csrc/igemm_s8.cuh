@@ -1,5 +1,6 @@
 // Implicit-GEMM int8 convolution core shared by the conv3x3_s8 kernel
-// (qconv.cu) and the fused SE block (qblock.cu).
+// (qconv.cu), the fused SE block (qblock.cu) and the dense GEMMs of the
+// ncat and DMA-im2col convolutions (qconv_variants.cu).
 //
 // The convolution is one GEMM with M = B*H*W output pixels, N = Cout and
 // K = taps*Cin, computed as s8 x s8 -> s32 on the int8 tensor cores with
@@ -41,6 +42,7 @@ enum Epilogue : int {
   kScaleF32 = 1,       // out f32  = acc * a[c]
   kAffineF32 = 2,      // out f32  = acc * a[c] + c[c]
   kAffineReluQ8 = 3,   // out s8   = quant(max(acc * a[c] + c[c], 0) * inv_s)
+  kRawS32 = 4,         // out s32  = acc
 };
 
 struct ConvArgs {
@@ -88,6 +90,11 @@ __device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
 template <int EPI>
 __device__ __forceinline__ void store2(const ConvArgs& p, long long row,
                                        int col, int acc0, int acc1) {
+  if constexpr (EPI == kRawS32) {
+    int* o = static_cast<int*>(p.out) + row * p.cout + col;
+    *reinterpret_cast<int2*>(o) = make_int2(acc0, acc1);
+    return;
+  }
   float v0 = static_cast<float>(acc0);
   float v1 = static_cast<float>(acc1);
   v0 = __fmul_rn(v0, p.a[col]);
@@ -258,6 +265,9 @@ inline cudaError_t launch_igemm_s8(const ConvArgs& p, int epilogue,
       break;
     case kAffineReluQ8:
       igemm_s8_kernel<kAffineReluQ8><<<grid, kThreads, 0, stream>>>(p);
+      break;
+    case kRawS32:
+      igemm_s8_kernel<kRawS32><<<grid, kThreads, 0, stream>>>(p);
       break;
     default:
       return cudaErrorInvalidValue;

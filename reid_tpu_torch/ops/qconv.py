@@ -62,6 +62,32 @@ def conv3x3_s8_plain(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
     return (conv_acc_plain(x, wt, 3) * scale.to(torch.float32)).to(out_dtype)
 
 
+def _check(name: str, x: torch.Tensor, wt: torch.Tensor,
+           scale: torch.Tensor, out_dtype, cout: int, wt_shape) -> None:
+    """The checks of the conv kernels' contract: int8 x (B, H, W, Cin) and
+    weight of `wt_shape`, (Cout,) f32 scale, Cin % 64 == 0,
+    Cout % 128 == 0, bf16 or f32 out, contiguous 16-byte aligned tensors
+    on one device."""
+    cin = x.shape[-1]
+    if x.dtype != torch.int8 or wt.dtype != torch.int8:
+        raise TypeError(f"{name} takes int8 x and wt, got {x.dtype}, "
+                        f"{wt.dtype}")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (cout,):
+        raise TypeError(f"scale must be ({cout},) float32")
+    if tuple(wt.shape) != tuple(wt_shape):
+        raise ValueError(f"wt {tuple(wt.shape)} is not {tuple(wt_shape)}")
+    if cin % 64 or cout % 128:
+        raise ValueError(f"{name} needs Cin % 64 == 0 and Cout % 128 == 0,"
+                         f" got {cin}, {cout}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    for t in (x, wt, scale):
+        if t.device != x.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name} takes contiguous, 16-byte aligned "
+                             "tensors on one device")
+
+
 def conv3x3_s8(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
                out_dtype=torch.bfloat16) -> torch.Tensor:
     """3x3 / stride-1 / SAME conv: int8 NHWC x packed int8 -> `out_dtype`.
@@ -73,23 +99,7 @@ def conv3x3_s8(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
         return conv3x3_s8_plain(x, wt, scale, out_dtype)
     b, h, w, cin = x.shape
     cout = wt.shape[0]
-    if x.dtype != torch.int8 or wt.dtype != torch.int8:
-        raise TypeError(f"conv3x3_s8 takes int8 x and wt, got {x.dtype}, "
-                        f"{wt.dtype}")
-    if scale.dtype != torch.float32 or scale.shape != (cout,):
-        raise TypeError(f"scale must be ({cout},) float32")
-    if tuple(wt.shape) != (cout, 9 * cin):
-        raise ValueError(f"wt {tuple(wt.shape)} is not (Cout, 9*{cin})")
-    if cin % 64 or cout % 128:
-        raise ValueError(f"conv3x3_s8 needs Cin % 64 == 0 and Cout % 128 == 0,"
-                         f" got {cin}, {cout}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"unsupported out_dtype {out_dtype}")
-    for t in (x, wt, scale):
-        if t.device != x.device or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError("conv3x3_s8 takes contiguous, 16-byte aligned "
-                             "tensors on one device")
+    _check(NAME, x, wt, scale, out_dtype, cout, (cout, 9 * cin))
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
     lib = _lib.load("qconv")
     fn = lib.reid_conv3x3_s8
@@ -101,6 +111,214 @@ def conv3x3_s8(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
              _lib.stream_of(x))
     _lib.check(err, NAME)
     _lib.count_launch(NAME, (h, w, cin, cout))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Three more forms of the same convolution (csrc/qconv_variants.cu), each
+# with conv3x3_s8's contract and, beside it, a plain version that follows
+# its formulation in float64 (exact for every K of the trunk).
+
+NCAT, BITSHIFT, DMA = ("conv3x3_s8_ncat", "conv3x3_s8_bitshift",
+                       "conv3x3_s8_dma")
+_TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+# device-memory budget of the per-block intermediate of ncat (the s32
+# product) and dma (the int8 im2col buffer) when img_block is 0
+SCRATCH_BYTES = 256 << 20
+
+
+def pack_ncat_weight(wt: torch.Tensor) -> torch.Tensor:
+    """`pack_conv_weight`'s (Cout, 9*Cin) -> (9*Cout, Cin), tap-major along
+    N: row t*Cout + o holds tap t of output channel o (the JAX kernel's
+    (Cin, 9*Cout) weight, transposed)."""
+    cout = wt.shape[0]
+    return wt.reshape(cout, 9, -1).transpose(0, 1).reshape(
+        9 * cout, -1).contiguous()
+
+
+def unpack_ncat_weight(wn: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_ncat_weight`."""
+    cout = wn.shape[0] // 9
+    return wn.reshape(9, cout, -1).transpose(0, 1).reshape(
+        cout, -1).contiguous()
+
+
+def img_block_for(b: int, h: int, w: int, row_bytes: int,
+                  img_block: int = 0) -> int:
+    """Images per block: `img_block` if positive, else as many as keep a
+    block's intermediate of `row_bytes` a row within SCRATCH_BYTES; at
+    most the batch, and few enough that a block's rows fit an int32."""
+    if img_block <= 0:
+        img_block = SCRATCH_BYTES // (h * w * row_bytes)
+    return max(1, min(b, img_block, (2 ** 31 - 1) // (h * w * row_bytes)))
+
+
+def _row_masks(nimg: int, h: int, w: int, device) -> torch.Tensor:
+    """(9, nimg*h*w) bool: tap t reaches inside the image of each flat row
+    (`reid_tpu/ops/qconv.py:_row_masks`)."""
+    r = torch.arange(nimg * h * w, device=device)
+    hi, wi = (r // w) % h, r % w
+    return torch.stack([(hi + dy >= 0) & (hi + dy < h) & (wi + dx >= 0)
+                        & (wi + dx < w) for dy, dx in _TAPS])
+
+
+def _by_blocks(x: torch.Tensor, cout: int, out_dtype, img_block: int, fn):
+    """Run `fn(x_block) -> f32 (rows, cout)` over blocks of `img_block`
+    images into a (B, H, W, Cout) tensor of `out_dtype`."""
+    b, h, w, _ = x.shape
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
+    for i0 in range(0, b, img_block):
+        xb = x[i0:i0 + img_block]
+        out[i0:i0 + img_block] = fn(xb).to(out_dtype).reshape(
+            xb.shape[0], h, w, cout)
+    return out
+
+
+def conv3x3_s8_ncat_plain(x: torch.Tensor, wn: torch.Tensor,
+                          scale: torch.Tensor, out_dtype=torch.bfloat16,
+                          img_block: int = 0) -> torch.Tensor:
+    """K3's formulation (`_qconv_ncat_kernel`): per block of images,
+    P = x @ wn^T (rows, 9*Cout), then the nine column slices of P rolled by
+    the tap's row offset, masked and summed; `* scale`."""
+    b, h, w, cin = x.shape
+    cout = wn.shape[0] // 9
+    img_block = img_block_for(b, h, w, 4 * 9 * cout, img_block)
+    wd = wn.to(torch.float64).T
+
+    def block(xb):
+        p = xb.reshape(-1, cin).to(torch.float64) @ wd
+        masks = _row_masks(xb.shape[0], h, w, x.device)
+        acc = torch.zeros((p.shape[0], cout), dtype=torch.float64,
+                          device=x.device)
+        for t, (dy, dx) in enumerate(_TAPS):
+            seg = torch.roll(p[:, t * cout:(t + 1) * cout], -(dy * w + dx), 0)
+            acc += torch.where(masks[t][:, None], seg, 0.0)
+        return acc.to(torch.float32) * scale.to(torch.float32)
+    return _by_blocks(x, cout, out_dtype, img_block, block)
+
+
+def im2col_rows(xb: torch.Tensor) -> torch.Tensor:
+    """(n, H, W, Cin) -> (n*H*W, 9*Cin), columns ordered (tap, cin): the
+    nine row windows of the flat rows at the taps' offsets, masked rows
+    zero (`_qconv_dma_kernel`'s buffer)."""
+    n, h, w, cin = xb.shape
+    rows, pad = n * h * w, w + 1
+    xp = torch.zeros((rows + 2 * pad, cin), dtype=xb.dtype, device=xb.device)
+    xp[pad:pad + rows] = xb.reshape(rows, cin)
+    masks = _row_masks(n, h, w, xb.device)
+    zero = torch.zeros((), dtype=xb.dtype, device=xb.device)
+    return torch.cat([torch.where(masks[t][:, None],
+                                  xp[pad + dy * w + dx:pad + dy * w + dx
+                                     + rows], zero)
+                      for t, (dy, dx) in enumerate(_TAPS)], dim=1)
+
+
+def conv3x3_s8_dma_plain(x: torch.Tensor, wt: torch.Tensor,
+                         scale: torch.Tensor, out_dtype=torch.bfloat16,
+                         img_block: int = 0) -> torch.Tensor:
+    """K5's formulation: per block of images, the (rows, 9*Cin) im2col,
+    then ONE product with the packed weight over K = 9*Cin; `* scale`."""
+    b, h, w, cin = x.shape
+    img_block = img_block_for(b, h, w, 9 * cin, img_block)
+    wd = wt.to(torch.float64).T
+
+    def block(xb):
+        acc = im2col_rows(xb).to(torch.float64) @ wd
+        return acc.to(torch.float32) * scale.to(torch.float32)
+    return _by_blocks(x, wt.shape[0], out_dtype, img_block, block)
+
+
+def conv3x3_s8_bitshift_plain(x: torch.Tensor, wt: torch.Tensor,
+                              scale: torch.Tensor, out_dtype=torch.bfloat16
+                              ) -> torch.Tensor:
+    """K4's formulation (`_qconv_bitshift_kernel`): the explicit
+    (rows, 9*Cin) im2col, then one product over K = 9*Cin, as
+    `conv3x3_s8_dma_plain` (blocked only to bound its memory)."""
+    return conv3x3_s8_dma_plain(x, wt, scale, out_dtype)
+
+
+def _launch(name: str, x: torch.Tensor, out: torch.Tensor, *args) -> None:
+    fn = getattr(_lib.load("qconv_variants"), "reid_" + name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p if isinstance(a, ctypes.c_void_p)
+                   else ctypes.c_int for a in args]
+    _lib.check(fn(*args), name)
+    b, h, w, cin = x.shape
+    _lib.count_launch(name, (h, w, cin, out.shape[-1]))
+
+
+def conv3x3_s8_ncat(x: torch.Tensor, wn: torch.Tensor, scale: torch.Tensor,
+                    img_block: int = 0, out_dtype=torch.bfloat16
+                    ) -> torch.Tensor:
+    """`conv3x3_s8`'s contract with the weight from `pack_ncat_weight`
+    (9*Cout, Cin): one s8 GEMM against all nine taps' weights, then the
+    tap sum. `img_block` images per block bound the s32 product in device
+    memory (0: from SCRATCH_BYTES)."""
+    if x.device.type == "cpu":
+        return conv3x3_s8_ncat_plain(x, wn, scale, out_dtype, img_block)
+    b, h, w, cin = x.shape
+    cout = wn.shape[0] // 9
+    _check(NCAT, x, wn, scale, out_dtype, cout, (9 * cout, cin))
+    img_block = img_block_for(b, h, w, 4 * 9 * cout, img_block)
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
+    prod = torch.empty((img_block * h * w, 9 * cout), dtype=torch.int32,
+                       device=x.device)
+    _launch(NCAT, x, out, _lib.ptr(x), _lib.ptr(wn), _lib.ptr(scale),
+            _lib.ptr(out), _lib.ptr(prod), b, h, w, cin, cout, img_block,
+            int(out_dtype == torch.float32), _lib.stream_of(x))
+    return out
+
+
+def conv3x3_s8_dma(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
+                   img_block: int = 0, out_dtype=torch.bfloat16
+                   ) -> torch.Tensor:
+    """`conv3x3_s8`'s contract: the masked im2col written to a
+    (rows, 9*Cin) int8 buffer, then one s8 GEMM over K = 9*Cin.
+    `img_block` images per block bound the buffer (0: from
+    SCRATCH_BYTES)."""
+    if x.device.type == "cpu":
+        return conv3x3_s8_dma_plain(x, wt, scale, out_dtype, img_block)
+    b, h, w, cin = x.shape
+    cout = wt.shape[0]
+    _check(DMA, x, wt, scale, out_dtype, cout, (cout, 9 * cin))
+    img_block = img_block_for(b, h, w, 9 * cin, img_block)
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
+    cols = torch.empty((img_block * h * w, 9 * cin), dtype=torch.int8,
+                       device=x.device)
+    _launch(DMA, x, out, _lib.ptr(x), _lib.ptr(wt), _lib.ptr(scale),
+            _lib.ptr(out), _lib.ptr(cols), b, h, w, cin, cout, img_block,
+            int(out_dtype == torch.float32), _lib.stream_of(x))
+    return out
+
+
+# shared memory a block of the bitshift kernel may take (H100)
+_MAX_SMEM = 232448
+
+
+def bitshift_smem_bytes(w: int) -> int:
+    """Dynamic shared memory of a bitshift block: two slabs of
+    128 + 2*(W+1) rows and two B tiles of 128 rows, 80 bytes a row."""
+    return (2 * (128 + 2 * (w + 1)) + 2 * 128) * 80
+
+
+def conv3x3_s8_bitshift(x: torch.Tensor, wt: torch.Tensor,
+                        scale: torch.Tensor, out_dtype=torch.bfloat16
+                        ) -> torch.Tensor:
+    """`conv3x3_s8`'s contract: per output tile and 64-channel chunk the
+    rows and their halo are staged in shared memory once, and all nine
+    taps read their operands from that slab."""
+    if x.device.type == "cpu":
+        return conv3x3_s8_bitshift_plain(x, wt, scale, out_dtype)
+    b, h, w, cin = x.shape
+    cout = wt.shape[0]
+    _check(BITSHIFT, x, wt, scale, out_dtype, cout, (cout, 9 * cin))
+    if bitshift_smem_bytes(w) > _MAX_SMEM:
+        raise ValueError(f"{BITSHIFT}: W = {w} needs more shared memory "
+                         "than a block has")
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
+    _launch(BITSHIFT, x, out, _lib.ptr(x), _lib.ptr(wt), _lib.ptr(scale),
+            _lib.ptr(out), b, h, w, cin, cout,
+            int(out_dtype == torch.float32), _lib.stream_of(x))
     return out
 
 

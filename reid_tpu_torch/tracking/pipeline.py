@@ -21,15 +21,13 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig
+from .gmc import chunk_affines_translation, estimate_affine
 from .methods import uses_gmc
 from .mot import write_mot_txt
 from .tracker import Tracker, _update_impl, apply_gmc
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
-
-_GMC_LATER = ("camera-motion compensation (botsort's default, or --gmc on) "
-              "is ported in a later slice; run with --gmc off")
 
 
 def _sync(device) -> None:
@@ -261,11 +259,17 @@ class ChunkedTracker:
             feats = self.embed_fn(crops).reshape(t, d, -1)
         return feats, valid
 
+    @staticmethod
+    def gmc_affines(frames, prev_frame=None):
+        """(T, 2, 3) camera-motion affines of the chunk, estimated on the
+        frames' device; `prev_frame` anchors the first (None: identity)."""
+        anchor = frames[0] if prev_frame is None else prev_frame
+        return chunk_affines_translation(anchor, frames)
+
     def associate(self, state, tlwh, conf, feats, valid, affines=None):
-        """The per-frame update over the chunk. Returns (state, outputs
-        with a leading frame axis)."""
-        if self.use_gmc and affines is None:
-            raise NotImplementedError(_GMC_LATER)
+        """The per-frame update over the chunk; `affines` (T, 2, 3) warp
+        the tracks first when GMC is on. Returns (state, outputs with a
+        leading frame axis)."""
         outs = []
         for i in range(tlwh.shape[0]):
             if self.use_gmc:
@@ -277,8 +281,11 @@ class ChunkedTracker:
             outs.append(out)
         return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
-    def __call__(self, state, frames, tlwh, conf, valid, affines=None):
+    def __call__(self, state, frames, tlwh, conf, valid, affines=None,
+                 prev_frame=None):
         feats, valid = self.embed(frames, tlwh, conf, valid)
+        if self.use_gmc and affines is None:
+            affines = self.gmc_affines(frames, prev_frame)
         return self.associate(state, tlwh, conf, feats, valid, affines)
 
 
@@ -288,9 +295,10 @@ def make_chunked_tracker(cfg: TrackerConfig, embed_fn, crop_hw,
                          frame_crop_cap: Optional[int] = None
                          ) -> ChunkedTracker:
     """The chunked throughput path: `run_chunk(state, frames, tlwh, conf,
-    valid, affines=None) -> (state, outputs)`. `crop_budget` caps the
-    chunk's embed batch, `frame_crop_cap` the per-frame crop count; both
-    are output-identical when they exceed the valid boxes."""
+    valid, affines=None, prev_frame=None) -> (state, outputs)`; with GMC
+    and no `affines` they are estimated from the frames. `crop_budget`
+    caps the chunk's embed batch, `frame_crop_cap` the per-frame crop
+    count; both are output-identical when they exceed the valid boxes."""
     if use_gmc is None:
         use_gmc = uses_gmc(cfg)
     if frame_crop_cap is None:
@@ -303,12 +311,18 @@ def make_chunked_tracker(cfg: TrackerConfig, embed_fn, crop_hw,
 
 class TrackingPipeline:
     """Host frame loop: embed + track on the device, MOT rows on the host.
-    Stage times are taken between device synchronisations."""
+    Stage times are taken between device synchronisations.
+
+    `gmc_mode` picks the chunked path's camera-motion estimator: "device",
+    the batched phase correlation of each chunk, or "host", `estimate_affine`
+    per frame (the step path's estimator). The affines applied are kept in
+    `affines`, one (2, 3) array per frame."""
 
     def __init__(self, cfg: TrackerConfig, embed_fn, feat_dim: int,
-                 device="cuda"):
-        if uses_gmc(cfg):
-            raise NotImplementedError(_GMC_LATER)
+                 device="cuda", gmc_mode: str = "device"):
+        if gmc_mode not in ("device", "host"):
+            raise ValueError(f"gmc_mode must be 'device' or 'host', got "
+                             f"{gmc_mode!r}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.tracker = Tracker(cfg, feat_dim=feat_dim, device=self.device)
@@ -320,8 +334,13 @@ class TrackingPipeline:
             frame_crop_cap=cfg.frame_crop_cap,
             embed_in_dtype=cfg.embed_in_dtype)
         self.results: List[dict] = []
-        self.timing = {"crop_embed": 0.0, "associate": 0.0, "total": 0.0}
+        self.timing = {"crop_embed": 0.0, "gmc": 0.0, "associate": 0.0,
+                       "total": 0.0}
         self.frames = 0
+        self._gmc = uses_gmc(cfg)
+        self.gmc_mode = gmc_mode
+        self.affines: List[np.ndarray] = []
+        self._prev_frame = None
         self._k_embed = max(1, int(cfg.embed_every))
         self._step_idx = 0
         self._chunked = None
@@ -333,6 +352,15 @@ class TrackingPipeline:
     def step(self, frame_idx: int, frame: np.ndarray, tlwh: np.ndarray,
              conf: np.ndarray, valid: np.ndarray):
         t0 = time.perf_counter()
+        if self._gmc:
+            affine = estimate_affine(self._prev_frame, frame)
+            if self._prev_frame is not None:
+                self.state = apply_gmc(self.state,
+                                       self._dev(affine, torch.float32))
+            self._prev_frame = frame
+            self.affines.append(affine)
+            _sync(self.device)
+        tg = time.perf_counter()
         is_embed = (self._step_idx % self._k_embed) == 0
         self._step_idx += 1
         tlwh_d = self._dev(tlwh, torch.float32)
@@ -352,7 +380,8 @@ class TrackingPipeline:
                                               has_feats=is_embed)
         out = {k: v.cpu().numpy() for k, v in out.items()}
         t2 = time.perf_counter()
-        self.timing["crop_embed"] += t1 - t0
+        self.timing["gmc"] += tg - t0
+        self.timing["crop_embed"] += t1 - tg
         self.timing["associate"] += t2 - t1
         self.timing["total"] += t2 - t0
         self.frames += 1
@@ -389,18 +418,23 @@ class TrackingPipeline:
             vl = valid[s:e] if pad == 0 else np.concatenate(
                 [valid[s:e], np.zeros((pad,) + valid.shape[1:], bool)])
             ta = time.perf_counter()
+            fr = self._dev(padded(frames))
             tl = self._dev(padded(tlwh), torch.float32)
             cf = self._dev(padded(conf), torch.float32)
-            feats, vd = self._chunked.embed(
-                self._dev(padded(frames)), tl, cf, self._dev(vl, torch.bool))
+            feats, vd = self._chunked.embed(fr, tl, cf,
+                                            self._dev(vl, torch.bool))
             _sync(self.device)
             tb = time.perf_counter()
+            affines = self._chunk_affines(frames, fr, s, e, pad) \
+                if self._gmc else None
+            tg = time.perf_counter()
             self.state, outs = self._chunked.associate(self.state, tl, cf,
-                                                       feats, vd)
+                                                       feats, vd, affines)
             outs = {k: v.cpu().numpy() for k, v in outs.items()}
             tc = time.perf_counter()
             self.timing["crop_embed"] += tb - ta
-            self.timing["associate"] += tc - tb
+            self.timing["gmc"] += tg - tb
+            self.timing["associate"] += tc - tg
             for i in range(e - s):
                 self.results.append({
                     "frame": first_frame + s + i, "tlwh": outs["tlwh"][i],
@@ -409,6 +443,23 @@ class TrackingPipeline:
         self.timing["total"] += dt
         self.frames += t_total
         return t_total / dt
+
+    def _chunk_affines(self, frames, fr, s, e, pad):
+        """The (T, 2, 3) affines of chunk [s, e) of `frames`, `fr` its
+        padded frames on the device; the frame before the chunk anchors
+        the first, as in the JAX package."""
+        if self.gmc_mode == "host":
+            prev, affs = frames[s - 1] if s > 0 else frames[0], []
+            for i in range(s, e):
+                affs.append(estimate_affine(prev, frames[i]))
+                prev = frames[i]
+            affs.extend([np.eye(2, 3, dtype=np.float32)] * pad)
+            affines = self._dev(np.stack(affs))
+        else:
+            prev = self._dev(frames[s - 1]) if s > 0 else None
+            affines = self._chunked.gmc_affines(fr, prev)
+        self.affines.extend(affines[:e - s].cpu().numpy())
+        return affines
 
     def write(self, path: str) -> int:
         return write_mot_txt(path, self.results)

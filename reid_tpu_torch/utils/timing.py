@@ -1,11 +1,57 @@
-"""Host-clock stage timing with the device synchronized at each boundary."""
+"""Host-clock stage timing with the device synchronized at each boundary,
+and the card-side timing and roofline bound of one kernel call."""
 
 from __future__ import annotations
 
+import statistics
 import time
 from typing import Dict, Optional
 
 import torch
+
+# Dense peaks by card (NVIDIA data sheets): int8 tensor ops/s, f32 flop/s
+# outside the tensor cores (an FMA counts two), bytes/s.
+PEAKS = {"H100 PCIe": dict(int8=1513e12, fp32=51.2e12, bytes=2.0e12),
+         "H100 NVL": dict(int8=1671e12, fp32=60.0e12, bytes=3.9e12),
+         "H200": dict(int8=1979e12, fp32=66.9e12, bytes=4.8e12),
+         "H100": dict(int8=1979e12, fp32=66.9e12, bytes=3.35e12)}
+
+
+def peaks(kind: str) -> dict:
+    """The published peaks of the card named `kind`."""
+    for key, val in PEAKS.items():
+        if key in kind:
+            return val
+    raise RuntimeError(f"no published peaks for {kind!r}")
+
+
+def bound(ops, nbytes, kind, rate="int8"):
+    """The least time in ms: `ops` at the card's `rate` ("int8" tensor ops,
+    "fp32" flops with an FMA as two, "fp32_alu" single f32 instructions
+    such as an add: half the fp32 flop rate) or `nbytes` at its memory
+    rate, whichever is longer; and which of the two it is."""
+    pk = peaks(kind)
+    per_s = pk["fp32"] / 2 if rate == "fp32_alu" else pk[rate]
+    t_ops, t_bytes = ops / per_s * 1e3, nbytes / pk["bytes"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def time_ms(fn, reps=20, warm=3):
+    """Median of `reps` CUDA-event timings of fn() after `warm` calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 class StageTimer:

@@ -74,9 +74,7 @@ def test_track_main_matches_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["--gt", "gt.txt"],
-                                   ["--save_vid", "out.avi"],
-                                   ["--tracking_method", "botsort"],
-                                   ["--gmc", "on"]])
+                                   ["--save_vid", "out.avi"]])
 def test_later_slice_flags_raise(tmp_path, extra):
     from reid_tpu_torch.cli import track_main
     det = tmp_path / "det.txt"

@@ -9,6 +9,8 @@ card and no JAX it runs on its own:
 Tolerances:
   * conv3x3_s8: exact. The s32 accumulator is exact on both sides and the
     rescale is one f32 multiply.
+  * conv3x3_s8_ncat, _bitshift and _dma: exact against their plain
+    versions and against conv3x3_s8, for the same reason.
   * se_basic_block_s8: rtol = atol = 1e-4 on >= 99.9% of the elements and
     5e-2 on all, the plain version's tolerance against the JAX reference.
     The plain version sums the per-image means and the SE dot products in
@@ -117,6 +119,53 @@ def test_conv3x3_s8_rejects_what_it_cannot_take(cuda):
         tq.conv3x3_s8(x, wt, s)
     with pytest.raises(TypeError):
         tq.conv3x3_s8(x.float(), wt, s)
+
+
+VARIANTS = {
+    tq.NCAT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_ncat(
+        x, tq.pack_ncat_weight(wt), s, blk, dt),
+    tq.BITSHIFT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_bitshift(
+        x, wt, s, dt),
+    tq.DMA: lambda x, wt, s, dt, blk: tq.conv3x3_s8_dma(x, wt, s, blk, dt)}
+PLAINS = {
+    tq.NCAT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_ncat_plain(
+        x, tq.pack_ncat_weight(wt), s, dt, blk),
+    tq.BITSHIFT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_bitshift_plain(
+        x, wt, s, dt),
+    tq.DMA: lambda x, wt, s, dt, blk: tq.conv3x3_s8_dma_plain(
+        x, wt, s, dt, blk)}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+@pytest.mark.parametrize("shape,img_block", [((7, 32, 16, 128, 128), 3),
+                                             ((5, 16, 8, 256, 256), 0),
+                                             ((3, 5, 7, 128, 256), 2),
+                                             ((2, 9, 11, 64, 128), 1)])
+def test_conv3x3_s8_variants_match_plain_and_k1(cuda, name, shape,
+                                                img_block):
+    """Each of K3-K5 equals its plain version and K1 bit for bit, with an
+    image block that splits the batch unevenly where one is given."""
+    args = conv_inputs(np.random.default_rng(2), *shape, cuda)
+    for dt in (torch.float32, torch.bfloat16):
+        reset_launch_counts()
+        got = VARIANTS[name](*args, dt, img_block)
+        assert launch_counts() == {name: 1}
+        want = PLAINS[name](*args, dt, img_block)
+        k1 = tq.conv3x3_s8(*args, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_conv3x3_s8_variants_reject_what_they_cannot_take(cuda, name):
+    x = torch.zeros((1, 4, 4, 96), dtype=torch.int8, device=cuda)
+    wt = torch.zeros((128, 9 * 96), dtype=torch.int8, device=cuda)
+    s = torch.ones(128, device=cuda)
+    with pytest.raises(ValueError):
+        VARIANTS[name](x, wt, s, torch.bfloat16, 0)
+    with pytest.raises(TypeError):
+        VARIANTS[name](x.float(), wt, s, torch.bfloat16, 0)
 
 
 FLAVORS = {"identity": (128, 128, False, False),
