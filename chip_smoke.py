@@ -9,9 +9,19 @@ the port builds its kernels and runs its main path there.
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build    nvcc of every kernel source in reid_tpu_torch/csrc, all
-              started together, into reid_tpu_torch/_build;
+              started together, into reid_tpu_torch/_build; each kernel's
+              registers and spill bytes from the -Xptxas -v logs (K1 and
+              K6 must not spill);
   3. kernels  each kernel at each call site of the track path, on a batch of
-              B = 2048 crops (a 32-frame chunk of 64 detection slots): held
+              B = 2048 crops (a 32-frame chunk of 64 detection slots). K1
+              (`conv3x3_s8`, csrc/qconv.cu) is the Hopper design: a
+              persistent grid, one producer thread issuing per tap and 64
+              channels a 4-D TMA box of the NHWC activation (the SAME halo
+              zero-filled by the hardware) and a 2-D box of the packed
+              weight into a 6-stage mbarrier ring, two consumer warpgroups
+              on wgmma m64nNk32 s8 (N = 256 where Cout allows), the
+              epilogue staged through shared memory; K2-K5 run on the
+              mma.sync core of csrc/igemm_s8.cuh. Each is held
               against its plain PyTorch version (conv3x3_s8 exactly, the
               fused SE block at rtol = atol = 1e-4 on >= 99.9% of elements
               and 5e-2 on all), and timed with CUDA events (median of 20
@@ -60,7 +70,13 @@ Phases, one JSON line each:
               the `--int8` retrieval trunk, on one embed batch of 128
               images (64 query images and their flips);
   9. distance kernels, held against their plain versions (rtol = atol =
-              1e-4 for sqeuclidean, 1e-5 for l1) and timed like phase 3, on
+              1e-4 for sqeuclidean, 1e-5 for l1) and timed like phase 3.
+              sqeuclidean (K6) is a pipelined SIMT f32 GEMM: transposed,
+              zero-padded copies of both operands (in its time), 128 x 144
+              tiles streamed through a 4-stage cp.async ring, 8 x 9 outputs
+              a thread read as float4 quads, each output summed by fmaf
+              over k ascending; l1 (K7) is the 128 x 128 SIMT tile kernel.
+              Both run on
               the operands of phase 6's first Jaccard call: sqeuclidean at
               the path's query block (1,024 of the de-biased unit features
               against all 23,100, D = 1,263), with the share of rows whose
@@ -92,7 +108,8 @@ import time
 
 import numpy as np
 
-from reid_tpu_torch.utils.timing import bound, peaks, time_ms
+from reid_tpu_torch.utils.timing import (bound, peaks, time_ms,
+                                         time_queued_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -160,16 +177,53 @@ def phase_device():
     return smi, kind
 
 
+def ptxas_kernels(log):
+    """Registers and spill bytes of each kernel that `nvcc -Xptxas -v`
+    compiled, from its log: [{kernel, registers, spill_stores,
+    spill_loads}] in the log's order, names demangled where c++filt is
+    installed."""
+    import re
+    import shutil
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(kernel=m.group(1))
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            check=True).stdout.splitlines()
+        for r, name in zip(rows, names):
+            r["kernel"] = name.split("(")[0]
+    return rows
+
+
 def phase_build():
+    """Every kernel source built at once; each kernel's registers and
+    spills from ptxas. K1 (qconv) and K6 (distance) must not spill: K1's
+    consumers hold 128 s32 accumulators at N = 256."""
     from reid_tpu_torch.ops import _lib
     names = sorted(f[:-3] for f in os.listdir(_lib.CSRC) if f.endswith(".cu"))
     res = _lib.build(names)
-    logs = {}
+    ptxas = {}
     for n in names:
         with open(os.path.join(_lib.BUILD_DIR, n + ".log")) as f:
-            logs[n] = [ln.strip() for ln in f if "Used" in ln or "spill" in ln]
+            ptxas[n] = ptxas_kernels(f.read())
     emit("build", kernels=names, built=res["built"], seconds=res["seconds"],
-         ptxas=logs)
+         ptxas=ptxas)
+    for n in ("qconv", "distance"):
+        assert ptxas[n], (n, "no ptxas report: was the library rebuilt?")
+        for k in ptxas[n]:
+            assert k["spill_stores"] == 0 and k["spill_loads"] == 0, k
 
 
 def quantized_trunk(dev, dtype, calib, crops, num_classes=751):
@@ -231,6 +285,8 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
             ms = time_ms(lambda: qconv.conv3x3_s8(*args))
             plain_ms = time_ms(lambda: qconv.conv3x3_s8_plain(*args))
             lib_ms = time_ms(lambda: torch._int_mm(cols, wcol))
+            queued = time_queued_ms(lambda: qconv.conv3x3_s8(*args))
+            lib_queued = time_queued_ms(lambda: torch._int_mm(cols, wcol))
             del cols
             bms, by = bound(2 * m * cout * 9 * cin,
                             m * cin + cout * 9 * cin + 4 * cout
@@ -240,7 +296,10 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
                              path=path, site=[h, w, cin, cout],
                              batch=xq.shape[0], out_dtype=str(dtype),
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                             bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                             queued_ms=queued[0], host_ms=queued[1],
+                             library_queued_ms=lib_queued[0],
+                             library_host_ms=lib_queued[1]))
             emit(f"kernel {rows[-1]['name']}", **rows[-1])
             del want
             wn = qconv.pack_ncat_weight(mod.mm.wt)
@@ -386,6 +445,22 @@ def profiled(fn, path):
             f.write(f"{e.self_device_time_total / 1e3:10.3f} ms "
                     f"{e.count:7d}x  {e.key[:150]}\n")
     return out, busy_ms
+
+
+def kernel_split(fn, reps=5):
+    """Device ms a call of each CUDA kernel that fn() launches, from
+    torch.profiler over `reps` calls after one untraced call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def run_track(argv, profile_to=None):
@@ -722,6 +797,13 @@ def phase_distance_kernels(kind, keep):
             plain_ms=time_ms(lambda: dist.sqeuclidean_plain(x, feats)),
             library_ms=time_ms(lambda: torch.cdist(x, feats)),
             bound_ms=bms, bound_by=by))
+        rows[-1]["queued_ms"], rows[-1]["host_ms"] = time_queued_ms(
+            lambda: dist.sqeuclidean(x, feats))
+        rows[-1]["library_queued_ms"], _ = time_queued_ms(
+            lambda: torch.cdist(x, feats))
+        # the row norms, the transposed copies and the tile kernel apart
+        rows[-1]["device_split_ms"] = kernel_split(
+            lambda: dist.sqeuclidean(x, feats))
         del err, x
         emit(f"kernel {rows[-1]['name']}", **rows[-1])
 

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], object] = {}
 _LOCK = threading.Lock()
 _SITE_COUNTS: Dict[Tuple[str, Tuple[int, ...]], int] = {}
 
@@ -129,6 +130,19 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def function(name: str, symbol: str, argtypes: list):
+    """`symbol` of the library for `csrc/<name>.cu`, returning an int error
+    code and taking `argtypes`; configured once, so a launch pays only the
+    call."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FNS[(name, symbol)] = fn
+    return fn
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -139,5 +153,6 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on `t`'s device, as a raw pointer."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))

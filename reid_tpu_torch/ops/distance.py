@@ -4,7 +4,8 @@ Counterpart of `reid_tpu/ops/distance.py`. Two kernels, each with its plain
 PyTorch version beside it:
 
   * `sqeuclidean` (K6, `csrc/distance.cu`): max(|x|^2 + |y|^2 - 2 x.y, 0)
-    in full f32; `sqeuclidean_plain` is the norms plus one matmul, as
+    in full f32, a pipelined SIMT GEMM over transposed, zero-padded copies
+    of both operands; `sqeuclidean_plain` is the norms plus one matmul, as
     `reid_tpu/ops/distance.py:_jnp_sqeuclidean` computes it.
   * `l1` (K7, `csrc/distance.cu`): sum_k |x - y|, the Jaccard min-sum of
     `ops/rerank.py`; `l1_plain` is the blocked broadcast sum of
@@ -33,6 +34,13 @@ NAME_SQ = "sqeuclidean"
 NAME_L1 = "l1"
 _L1_BUDGET = 1 << 26     # elements of one |x - y| block of `l1_plain`
 _L1_ROWS = 128           # rows of x per block of `l1_plain`
+# K6's tile (rows of x, rows of y) and D chunk: its operands are copied
+# transposed and zero-padded to whole tiles and chunks (csrc/distance.cu)
+_SQ_TILE = (128, 144, 16)
+
+
+def _ceil_to(v: int, k: int) -> int:
+    return -(-v // k) * k
 
 
 def sqeuclidean_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -82,14 +90,17 @@ def sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
+    mp, np_, dp = (_ceil_to(m, _SQ_TILE[0]), _ceil_to(n, _SQ_TILE[1]),
+                   _ceil_to(d, _SQ_TILE[2]))
+    xt = torch.empty((dp, mp), dtype=torch.float32, device=x.device)
+    yt = torch.empty((dp, np_), dtype=torch.float32, device=x.device)
     xx = torch.empty(m, dtype=torch.float32, device=x.device)
     yy = torch.empty(n, dtype=torch.float32, device=x.device)
-    fn = _lib.load("distance").reid_sqeuclidean
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    _lib.check(fn(_lib.ptr(x), _lib.ptr(y), _lib.ptr(xx), _lib.ptr(yy),
-                  _lib.ptr(out), m, n, d, _lib.stream_of(x)), NAME_SQ)
+    fn = _lib.function("distance", "reid_sqeuclidean", [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    _lib.check(fn(x.data_ptr(), y.data_ptr(), xt.data_ptr(), yt.data_ptr(),
+                  xx.data_ptr(), yy.data_ptr(), out.data_ptr(), m, n, d, mp,
+                  np_, dp, _lib.stream_of(x)), NAME_SQ)
     _lib.count_launch(NAME_SQ, (d,))
     return out
 
@@ -104,10 +115,8 @@ def l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
-    fn = _lib.load("distance").reid_l1
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    fn = _lib.function("distance", "reid_l1", [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     _lib.check(fn(_lib.ptr(x), _lib.ptr(y), _lib.ptr(out), m, n, d,
                   _lib.stream_of(x)), NAME_L1)
     _lib.count_launch(NAME_L1, (d,))

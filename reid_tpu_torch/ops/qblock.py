@@ -205,12 +205,10 @@ def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
     def opt(t):
         return _lib.ptr(t) if t is not None else None
 
-    lib = _lib.load("qblock")
-    fn = lib.reid_se_basic_block_s8
-    fn.restype = ctypes.c_int
     vp, fl, ci = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    fn.argtypes = ([vp] * 7 + [fl, fl] + [vp] * 5 + [fl] + [vp] * 13
-                   + [ci] * 8 + [vp])
+    fn = _lib.function("qblock", "reid_se_basic_block_s8",
+                       [vp] * 7 + [fl, fl] + [vp] * 5 + [fl] + [vp] * 13
+                       + [ci] * 8 + [vp])
     err = fn(_lib.ptr(x), _lib.ptr(p.w1), _lib.ptr(p.w2), _lib.ptr(p.a1),
              _lib.ptr(p.c1), _lib.ptr(p.a2), _lib.ptr(p.c2),
              p.inv_sx1, p.inv_sx2, _lib.ptr(p.wfc1), _lib.ptr(p.wfc2),

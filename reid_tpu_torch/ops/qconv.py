@@ -1,9 +1,9 @@
 """int8 3x3 stride-1 SAME convolution, NHWC, s8 x s8 -> s32.
 
 Counterpart of `reid_tpu/ops/qconv.py:conv3x3_s8`. On a CUDA tensor the
-wrapper launches the hand-written implicit-GEMM kernel in
-`csrc/qconv.cu` (int8 tensor cores, fused dequant epilogue); on a CPU
-tensor it computes the plain version, `conv3x3_s8_plain`.
+wrapper launches the hand-written implicit-GEMM kernel in `csrc/qconv.cu`
+(`wgmma` on the int8 tensor cores fed by TMA, fused dequant epilogue); on
+a CPU tensor it computes the plain version, `conv3x3_s8_plain`.
 
 The weight is taken pre-laid out as (Cout, 9*Cin) with K ordered
 (tap, cin) (`pack_conv_weight`), done once at quantization time.
@@ -101,12 +101,9 @@ def conv3x3_s8(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
     cout = wt.shape[0]
     _check(NAME, x, wt, scale, out_dtype, cout, (cout, 9 * cin))
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
-    lib = _lib.load("qconv")
-    fn = lib.reid_conv3x3_s8
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    err = fn(_lib.ptr(x), _lib.ptr(wt), _lib.ptr(scale), _lib.ptr(out),
+    fn = _lib.function("qconv", "reid_conv3x3_s8", [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), wt.data_ptr(), scale.data_ptr(), out.data_ptr(),
              b, h, w, cin, cout, int(out_dtype == torch.float32),
              _lib.stream_of(x))
     _lib.check(err, NAME)
@@ -238,10 +235,9 @@ def conv3x3_s8_bitshift_plain(x: torch.Tensor, wt: torch.Tensor,
 
 
 def _launch(name: str, x: torch.Tensor, out: torch.Tensor, *args) -> None:
-    fn = getattr(_lib.load("qconv_variants"), "reid_" + name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p if isinstance(a, ctypes.c_void_p)
-                   else ctypes.c_int for a in args]
+    fn = _lib.function("qconv_variants", "reid_" + name,
+                       [ctypes.c_void_p if isinstance(a, ctypes.c_void_p)
+                        else ctypes.c_int for a in args])
     _lib.check(fn(*args), name)
     b, h, w, cin = x.shape
     _lib.count_launch(name, (h, w, cin, out.shape[-1]))

@@ -54,6 +54,27 @@ def time_ms(fn, reps=20, warm=3):
     return statistics.median(times)
 
 
+def time_queued_ms(fn, reps=20, warm=3):
+    """fn() `reps` times back to back, after `warm` calls: (device ms a call,
+    CUDA events around the whole run; host ms a call to enqueue them). The
+    device figure leaves out the host's launch overhead wherever the host
+    enqueues faster than the card runs, which `time_ms` (an idle card
+    before every call) includes."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    b.synchronize()
+    return a.elapsed_time(b) / reps, host
+
+
 class StageTimer:
     """`mark(name)` adds the seconds since the previous mark (or since the
     timer was made) to `timing[name]`, after synchronizing `device`. With

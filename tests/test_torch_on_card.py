@@ -99,8 +99,16 @@ def block_params(rng, cin, cout, down, ibn, dev, mip=16):
 @pytest.mark.parametrize("shape", [(4, 32, 16, 128, 128),
                                    (8, 16, 8, 256, 256),
                                    (3, 5, 7, 128, 256),
-                                   (2, 9, 11, 64, 128)])
+                                   (2, 9, 11, 64, 128),
+                                   (16, 8, 4, 512, 512),
+                                   (4, 16, 8, 256, 256),
+                                   (2, 6, 10, 64, 256)])
 def test_conv3x3_s8_matches_plain(cuda, shape):
+    """Exact in bf16 and f32, one launch each. The shapes cover a tile of
+    four whole images (8x4: 32 pixels an image) with Cout split over two
+    N tiles of 256, ragged boxes that leave tile rows unused (5x7, 9x11,
+    6x10), every tile form (128 x 256 and 256 x 128, K steps of 64 and 128
+    channels), and one image per tile (16x8)."""
     args = conv_inputs(np.random.default_rng(1), *shape, cuda)
     for dt in (torch.float32, torch.bfloat16):
         reset_launch_counts()
@@ -262,8 +270,32 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = flag
 
 
+def test_sqeuclidean_topk_block_matches_plain(cuda, no_tf32):
+    """A query block of the retrieval path's width (1,024 x 2,000, D =
+    1,263) on values that are multiples of 1/4: every product and sum is
+    exact in f32, so kernel and plain agree exactly and no near-tie can
+    reorder neighbours; the top-20 indices must then be equal on every
+    row, which holds every element the tiles, padding and masks move."""
+    rng = np.random.default_rng(11)
+    x = np.round(rng.normal(size=(1024, 1263)) * 4) / 4
+    y = np.round(rng.normal(size=(2000, 1263)) * 4) / 4
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    y = torch.from_numpy(y.astype(np.float32)).to(cuda)
+    reset_launch_counts()
+    got = tdist.sqeuclidean(x, y)
+    assert launch_counts()[tdist.NAME_SQ] == 1
+    want = tdist.sqeuclidean_plain(x, y)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    top_g = torch.sort(got, dim=1, stable=True).indices[:, :20]
+    top_w = torch.sort(want, dim=1, stable=True).indices[:, :20]
+    assert bool((top_g == top_w).all())
+
+
 @pytest.mark.parametrize("m,n,d", [(1, 1, 1), (37, 129, 33),
-                                   (300, 1000, 1263), (128, 256, 64)])
+                                   (300, 1000, 1263), (128, 256, 64),
+                                   (1024, 2000, 1263)])
 def test_sqeuclidean_matches_plain(cuda, no_tf32, m, n, d):
     rng = np.random.default_rng(m + n + d)
     x = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(cuda)
