@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 4 min
+    python3 chip_smoke.py             # on one card, about 5 min
     python3 chip_smoke.py --profile   # the same, tracing the track runs
                                       # and the retrieval run
 
@@ -10,24 +10,36 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build    nvcc of every kernel source in reid_tpu_torch/csrc, all
               started together, into reid_tpu_torch/_build; each kernel's
-              registers and spill bytes from the -Xptxas -v logs (K1 and
-              K6 must not spill);
+              registers and spill bytes from the -Xptxas -v logs (K1, K2
+              and K6 must not spill);
   3. kernels  each kernel at each call site of the track path, on a batch of
               B = 2048 crops (a 32-frame chunk of 64 detection slots). K1
-              (`conv3x3_s8`, csrc/qconv.cu) is the Hopper design: a
-              persistent grid, one producer thread issuing per tap and 64
-              channels a 4-D TMA box of the NHWC activation (the SAME halo
-              zero-filled by the hardware) and a 2-D box of the packed
-              weight into a 6-stage mbarrier ring, two consumer warpgroups
-              on wgmma m64nNk32 s8 (N = 256 where Cout allows), the
-              epilogue staged through shared memory; K2-K5 run on the
-              mma.sync core of csrc/igemm_s8.cuh. Each is held
+              (`conv3x3_s8`, csrc/qconv.cu) and K2's three GEMMs
+              (`se_basic_block_s8`, csrc/qblock.cu) run on the Hopper
+              mainloop of csrc/wgmma_s8.cuh: a persistent grid, one producer
+              thread issuing per tap and 64 or 128 channels a 4-D TMA box of
+              the NHWC activation (the SAME halo zero-filled by the
+              hardware) and a 2-D box of the packed weight into a 3-6 stage
+              mbarrier ring, two consumer warpgroups on wgmma m64nNk32 s8
+              (N = 256 where Cout allows), each with its own epilogue; K2's
+              keep the IBN statistics, the SE pooling and the residual on
+              chip where a tile holds what they need. K3 and K5 run on the
+              mma.sync core of csrc/igemm_s8.cuh, K4 on its own mma.sync
+              slab. Each is held
               against its plain PyTorch version (conv3x3_s8 exactly, the
               fused SE block at rtol = atol = 1e-4 on >= 99.9% of elements
-              and 5e-2 on all), and timed with CUDA events (median of 20
-              after warm-up) beside the plain version, the least time the
-              card could take, and the one PyTorch call that computes the
-              same function where there is one. The fused block is also
+              and 5e-2 on all, and whether it is bit-equal), and timed with
+              CUDA events (median of 20 after warm-up) beside the plain
+              version, the least time the card could take, and the one
+              PyTorch call that computes the same function where there is
+              one; K1 and K2 also back to back (`queued_ms`, and the
+              wrapper's `host_ms`). K2's rows add its time before the wgmma
+              design (`before_ms`), a torch.profiler split of one call's
+              launches with the bytes each must move, their count and sum
+              (`launches_per_call`, `design_bytes`), and where images span
+              tiles the share of outputs that the per-tile summation order
+              moves against one part an image (`moved_by_tile_order`).
+              The fused block is also
               compared, without a limit, with its plain version summed in
               torch's order (`share_tight_torch_order`), which shows how
               much room the limit has when the summation orders differ.
@@ -131,6 +143,11 @@ VARIANT_REPLACES = {"conv3x3_s8_ncat": "reid_tpu/ops/qconv.py:188",
 PAN = (4, -4)
 K2_SOURCE, K2_REPLACES = ("reid_tpu_torch/csrc/qblock.cu",
                           "reid_tpu/ops/qblock.py:313")
+# K2's ms at K2_SITES before its wgmma design (the launch sequence on the
+# mma.sync core of csrc/igemm_s8.cuh), measured as here on an NVIDIA H100
+# 80GB HBM3 at 700 W: bf16 at B = 2048, f32 at B = 128
+K2_BEFORE_MS = {"torch.bfloat16": (3.618, 2.480, 5.726, 6.522),
+                "torch.float32": (0.3817, 0.2940, 0.5333, 0.5523)}
 K6_REPLACES = "reid_tpu/ops/distance.py:85"
 K7_REPLACES = "reid_tpu/ops/distance.py:149"
 DIST_SOURCE = "reid_tpu_torch/csrc/distance.cu"
@@ -209,8 +226,8 @@ def ptxas_kernels(log):
 
 def phase_build():
     """Every kernel source built at once; each kernel's registers and
-    spills from ptxas. K1 (qconv) and K6 (distance) must not spill: K1's
-    consumers hold 128 s32 accumulators at N = 256."""
+    spills from ptxas. K1 (qconv), K2 (qblock) and K6 (distance) must not
+    spill: the wgmma consumers hold 128 s32 accumulators a thread."""
     from reid_tpu_torch.ops import _lib
     names = sorted(f[:-3] for f in os.listdir(_lib.CSRC) if f.endswith(".cu"))
     res = _lib.build(names)
@@ -220,7 +237,7 @@ def phase_build():
             ptxas[n] = ptxas_kernels(f.read())
     emit("build", kernels=names, built=res["built"], seconds=res["seconds"],
          ptxas=ptxas)
-    for n in ("qconv", "distance"):
+    for n in ("qconv", "qblock", "distance"):
         assert ptxas[n], (n, "no ptxas report: was the library rebuilt?")
         for k in ptxas[n]:
             assert k["spill_stores"] == 0 and k["spill_loads"] == 0, k
@@ -325,24 +342,36 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
                     bound_ms=bms, bound_by=by, library_ms=lib_ms))
                 emit(f"kernel {rows[-1]['name']}", **rows[-1])
             del got
-        for site in K2_SITES:
+        for i, site in enumerate(K2_SITES):
             mod = qm.get_submodule(site)
             x = seen[site].contiguous()
             p, ibn = mod.p, mod.ibn
             bsz, h, w, cin = x.shape
             cout, mip = p.w2.shape[0], p.wfc1.shape[1]
             assert x.dtype == dtype, (site, x.dtype)
-            got = qblock.se_basic_block_s8(x, p, ibn, dtype)
+
+            def call():
+                return qblock.se_basic_block_s8(x, p, ibn, dtype)
+            got = call()
             want = qblock.se_basic_block_s8_plain(x, p, ibn, dtype)
             torch.cuda.synchronize()
             share, err = within(got.float(), want.float())
+            bit_equal = bool(torch.equal(got, want))
             del want
             share_t, err_t, loose_t = agreement(
                 got.float(), qblock.se_basic_block_s8_plain(
                     x, p, ibn, dtype, kernel_order=False).float())
-            ms = time_ms(lambda: qblock.se_basic_block_s8(x, p, ibn, dtype))
+            # where images span tiles: the share of outputs that the
+            # per-tile summation order moves against one part an image
+            moved = None
+            if len(qblock.tile_segments(h, w, cout)) > 1:
+                one = plain_one_part(x, p, ibn, dtype)
+                moved = (got != one).double().mean().item()
+                del one
+            ms = time_ms(call)
             plain_ms = time_ms(
                 lambda: qblock.se_basic_block_s8_plain(x, p, ibn, dtype))
+            queued = time_queued_ms(call)
             m = bsz * h * w
             down = p.wd is not None
             ops = (2 * m * cout * 9 * (cin + cout)
@@ -352,16 +381,30 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
                       + (cout * cin if down else 0) + 4 * cout * mip
                       + 4 * 9 * cout + esize * m * cout)
             bms, by = bound(ops, nbytes, kind)
+            split = launch_split(call)
+            for k, n in zip(split, k2_launch_bytes(
+                    [k[0] for k in split], bsz, h, w, cin, cout, mip, down,
+                    esize)):
+                k.append(n)
             rows.append(dict(name=f"se_basic_block_s8 {site}{suffix}",
                              route="cuda", source=K2_SOURCE,
                              replaces=K2_REPLACES, path=path,
                              site=[h, w, cin, cout, int(ibn)], batch=bsz,
-                             down=down, max_abs_err=err, share_tight=share,
+                             down=down, max_abs_err=err, bit_equal=bit_equal,
+                             moved_by_tile_order=moved,
+                             share_tight=share,
                              share_tight_torch_order=share_t,
                              max_abs_err_torch_order=err_t,
-                             within_loose_torch_order=loose_t, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=by, library_ms=None))
+                             within_loose_torch_order=loose_t, ms=ms,
+                             before_ms=K2_BEFORE_MS[str(dtype)][i],
+                             plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, library_ms=None,
+                             queued_ms=queued[0], host_ms=queued[1],
+                             launches_per_call=len(split),
+                             design_bytes=sum(k[2] for k in split),
+                             device_split_ms=split))
             emit(f"kernel {rows[-1]['name']}", **rows[-1])
+            del got
     del seen, qm
     torch.cuda.empty_cache()
     return rows
@@ -447,20 +490,106 @@ def profiled(fn, path):
     return out, busy_ms
 
 
-def kernel_split(fn, reps=5):
-    """Device ms a call of each CUDA kernel that fn() launches, from
-    torch.profiler over `reps` calls after one untraced call."""
+def launch_split(fn, reps=5):
+    """[name, device ms] of each CUDA kernel launch of one fn() call, in
+    launch order: one call traced by torch.profiler at a time, after one
+    untraced call, and the median over the `reps` traces that caught the
+    most launches (a trace can miss a short kernel's record)."""
+    import statistics
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    traces = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    return {e.key[:80]: e.self_device_time_total / 1e3 / reps
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            torch.cuda.synchronize()
+        traces.append(sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start))
+    n = max(len(t) for t in traces)
+    full = [t for t in traces if len(t) == n]
+    return [[full[0][i].name[:90], statistics.median(
+        t[i].time_range.elapsed_us() / 1e3 for t in full)]
+        for i in range(n)]
+
+
+def k2_launch_bytes(names, b, h, w, cin, cout, mip, down, esize):
+    """The bytes that each of K2's launches `names` (one call's, in launch
+    order, as `launch_split` saw them) must move: its inputs read once and
+    its outputs written once, the per-channel vectors left out. The GEMM
+    launches are conv1, conv2 and the down GEMM in that order; conv1
+    writes y1 in f32 and the partial sums where an IBN pass follows it."""
+    from reid_tpu_torch.ops import qblock
+    m = b * h * w
+    part = 4 * b * len(qblock.tile_segments(h, w, cout)) * cout
+    gate = 4 * b * cout
+    y1 = any("ibn_apply_kernel" in n for n in names)
+    per_kernel = {
+        "quant_kernel": esize * m * cin + m * cin * (2 if down else 1),
+        "ibn_apply_kernel": 2 * part + 5 * m * cout,
+        "se_gate_kernel": part + 4 * cout * mip + gate,
+        "resid_kernel": 4 * m * cout + gate + 2 * esize * m * cout}
+    gemms = iter([
+        m * cin + 9 * cin * cout + (2 * part + 4 * m * cout if y1
+                                    else m * cout),
+        m * cout + 9 * cout * cout + part + 4 * m * cout,
+        m * cin + cin * cout + 4 * m * cout + gate + esize * m * cout])
+    out = []
+    for name in names:
+        key = next((k for k in per_kernel if k in name), None)
+        out.append(per_kernel[key] if key else next(gemms))
+    return out
+
+
+def plain_one_part(x, p, ibn, dtype):
+    """The fused block's plain version with each image summed in one set of
+    8 stripes over all its rows, as before an image's rows were split
+    across tiles: the order that `moved_by_tile_order` compares with."""
+    import torch
+    from reid_tpu_torch.ops import qblock
+    from reid_tpu_torch.ops.qconv import conv_acc_plain, quantize_s8
+
+    def mean(v):
+        b, h, w, c = v.shape
+        rows = v.reshape(b, h * w, c)
+        acc = rows.new_zeros((b, 8, c))
+        for r0 in range(0, h * w, 8):
+            part = rows[:, r0:r0 + 8]
+            acc[:, :part.shape[1]] += part
+        total = acc[:, 0]
+        for s in range(1, 8):
+            total = total + acc[:, s]
+        return (total / (h * w))[:, None, None, :]
+
+    cout = p.w2.shape[0]
+    acc1 = conv_acc_plain(quantize_s8(x, p.inv_sx1), p.w1, 3)
+    if ibn:
+        y1 = acc1 * p.dq1_vec
+        mu = mean(y1)
+        var = torch.clamp(mean(y1 * y1) - mu * mu, min=0.0)
+        y_in = (y1 - mu) * (1.0 / torch.sqrt(var + 1e-5)) * p.in_scale \
+            + p.in_bias
+        ch = torch.arange(cout, device=x.device)
+        h1 = torch.relu(torch.where(ch < cout // 2, y_in,
+                                    y1 * p.a1 + p.c1))
+    else:
+        h1 = torch.relu(acc1 * p.a1 + p.c1)
+    y2 = conv_acc_plain(quantize_s8(h1, p.inv_sx2), p.w2, 3) * p.a2 + p.c2
+    s = qblock._fc_warp(mean(y2)[:, 0, 0, :].to(torch.bfloat16).float(),
+                        p.wfc1.float())
+    s = torch.relu(s.to(torch.bfloat16)).float()
+    gate = torch.reciprocal(1.0 + torch.exp(-qblock._fc_serial(
+        s, p.wfc2.float())))
+    if p.wd is not None:
+        branch = conv_acc_plain(quantize_s8(x, p.inv_sxd), p.wd, 1) * p.ad \
+            + p.cd
+    else:
+        branch = x.to(torch.float32)
+    return torch.relu(y2 * gate[:, None, None, :] + branch).to(dtype)
 
 
 def run_track(argv, profile_to=None):
@@ -802,7 +931,7 @@ def phase_distance_kernels(kind, keep):
         rows[-1]["library_queued_ms"], _ = time_queued_ms(
             lambda: torch.cdist(x, feats))
         # the row norms, the transposed copies and the tile kernel apart
-        rows[-1]["device_split_ms"] = kernel_split(
+        rows[-1]["device_split_ms"] = launch_split(
             lambda: dist.sqeuclidean(x, feats))
         del err, x
         emit(f"kernel {rows[-1]['name']}", **rows[-1])

@@ -1,6 +1,7 @@
-// Implicit-GEMM int8 convolution core shared by the conv3x3_s8 kernel
-// (qconv.cu), the fused SE block (qblock.cu) and the dense GEMMs of the
-// ncat and DMA-im2col convolutions (qconv_variants.cu).
+// Implicit-GEMM int8 convolution core on mma.sync of the dense GEMMs of the
+// ncat and DMA-im2col convolutions (qconv_variants.cu), whose epilogue the
+// bitshift kernel there shares. conv3x3_s8 and the fused SE block run on
+// the Hopper mainloop of wgmma_s8.cuh instead.
 //
 // The convolution is one GEMM with M = B*H*W output pixels, N = Cout and
 // K = taps*Cin, computed as s8 x s8 -> s32 on the int8 tensor cores with
@@ -16,11 +17,10 @@
 //
 // Tiles: 128 x 128 x 64 per block of 8 warps (each warp 64 x 32), operands
 // double-buffered in shared memory by cp.async (zero-fill for the halo),
-// accumulators in registers. The epilogue is fused: a per-channel scale or
-// affine in f32, written as bf16, f32 or a requantized int8. Every float
-// step uses explicit round-to-nearest intrinsics (__fmul_rn, __fadd_rn), so
-// no multiply-add is contracted into an FMA and each value equals the plain
-// PyTorch version's elementwise arithmetic bit for bit.
+// accumulators in registers. The epilogue is fused: a per-channel scale in
+// f32, written as bf16 or f32, or the raw s32 sum. The scale is one
+// __fmul_rn, so each value equals the plain PyTorch version's elementwise
+// arithmetic bit for bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,28 +40,17 @@ constexpr int kThreads = 256;
 enum Epilogue : int {
   kScaleBf16 = 0,      // out bf16 = acc * a[c]
   kScaleF32 = 1,       // out f32  = acc * a[c]
-  kAffineF32 = 2,      // out f32  = acc * a[c] + c[c]
-  kAffineReluQ8 = 3,   // out s8   = quant(max(acc * a[c] + c[c], 0) * inv_s)
   kRawS32 = 4,         // out s32  = acc
 };
 
 struct ConvArgs {
   const int8_t* x;     // (B, H, W, Cin) int8, NHWC
   const int8_t* wt;    // (Cout, taps*Cin) int8, K ordered (tap, cin)
-  const float* a;      // (Cout,) scale or affine multiplier
-  const float* c;      // (Cout,) affine offset (affine epilogues only)
-  float inv_s;         // requantization multiplier (kAffineReluQ8 only)
+  const float* a;      // (Cout,) scale
   void* out;           // (B, H, W, Cout)
   int nimg, h, w, cin, cout;
   int taps;            // 9: 3x3 stride-1 SAME; 1: 1x1
 };
-
-__device__ __forceinline__ int8_t quant_s8(float v, float inv_s) {
-  // round half to even (rintf), then clip to +-127: jnp.round semantics
-  float q = rintf(__fmul_rn(v, inv_s));
-  q = fminf(fmaxf(q, -127.0f), 127.0f);
-  return static_cast<int8_t>(static_cast<int>(q));
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int src_bytes) {
@@ -105,21 +94,9 @@ __device__ __forceinline__ void store2(const ConvArgs& p, long long row,
     r.x = __float2bfloat16_rn(v0);
     r.y = __float2bfloat16_rn(v1);
     *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + o) = r;
-  } else if (EPI == kScaleF32) {
+  } else {
     *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
         make_float2(v0, v1);
-  } else {
-    v0 = __fadd_rn(v0, p.c[col]);
-    v1 = __fadd_rn(v1, p.c[col + 1]);
-    if (EPI == kAffineF32) {
-      *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
-          make_float2(v0, v1);
-    } else {
-      char2 r;
-      r.x = quant_s8(fmaxf(v0, 0.0f), p.inv_s);
-      r.y = quant_s8(fmaxf(v1, 0.0f), p.inv_s);
-      *reinterpret_cast<char2*>(static_cast<int8_t*>(p.out) + o) = r;
-    }
   }
 }
 
@@ -259,12 +236,6 @@ inline cudaError_t launch_igemm_s8(const ConvArgs& p, int epilogue,
       break;
     case kScaleF32:
       igemm_s8_kernel<kScaleF32><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    case kAffineF32:
-      igemm_s8_kernel<kAffineF32><<<grid, kThreads, 0, stream>>>(p);
-      break;
-    case kAffineReluQ8:
-      igemm_s8_kernel<kAffineReluQ8><<<grid, kThreads, 0, stream>>>(p);
       break;
     case kRawS32:
       igemm_s8_kernel<kRawS32><<<grid, kThreads, 0, stream>>>(p);

@@ -294,8 +294,6 @@ ConvArgs conv_args(const void* x, const void* w, const void* scale, void* out,
   p.x = static_cast<const int8_t*>(x);
   p.wt = static_cast<const int8_t*>(w);
   p.a = static_cast<const float*>(scale);
-  p.c = nullptr;
-  p.inv_s = 0.0f;
   p.out = out;
   p.nimg = nimg;
   p.h = h;

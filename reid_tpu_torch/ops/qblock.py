@@ -14,8 +14,10 @@ Counterpart of `reid_tpu/ops/qblock.py:se_basic_block_s8`. Per block:
     out  = relu(y * g + r)
 
 On a CUDA tensor the wrapper runs the hand-written launch sequence of
-`csrc/qblock.cu`; on a CPU tensor it computes `se_basic_block_s8_plain`.
-Conv weights are packed (Cout, taps*Cin), K ordered (tap, cin).
+`csrc/qblock.cu` (its three GEMMs on the `wgmma` mainloop shared with
+`conv3x3_s8`, fused epilogues); on a CPU tensor it computes
+`se_basic_block_s8_plain`. Conv weights are packed (Cout, taps*Cin), K
+ordered (tap, cin).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from . import _lib
 from .qconv import conv_acc_plain, quantize_s8
 
 NAME = "se_basic_block_s8"
-_STRIPES = 8    # kRedStripes of csrc/qblock.cu: rows each thread strides
+_STRIPES = 8    # kStripes of csrc/qblock.cu: the stripes of a per-image sum
 
 
 class QBlockParams(NamedTuple):
@@ -64,22 +66,40 @@ def fold_bn(scale, bias, mean, var, eps=1e-5):
     return a, c
 
 
+def tile_segments(h: int, w: int, cout: int):
+    """The pixel ranges [p0, p1) of one image, in row-major pixel order,
+    that the kernel's output tiles hold: tiles of 128 rows where
+    Cout % 256 == 0, else of 256, each a box of bw = min(W, rows) pixels by
+    bh = min(H, rows // bw) image rows, so its part of an image is one
+    contiguous range. One range where a tile holds whole images."""
+    rows = 128 if cout % 256 == 0 else 256
+    bw = min(w, rows)
+    bh = min(h, rows // bw)
+    return [(y0 * w + x0, y0 * w + x0 + min(bh, h - y0) * min(bw, w - x0))
+            for y0 in range(0, h, bh) for x0 in range(0, w, bw)]
+
+
 def _image_mean(v: torch.Tensor, kernel_order: bool) -> torch.Tensor:
     """(b, h, w, c) f32 -> (b, 1, 1, c) per-image channel means: the sum
-    over H*W rows divided by H*W. In the kernel's fixed order
-    (`chan_mean_kernel`), stripe s adds rows s, s + 8, s + 16, ... in turn
-    and the 8 stripe sums are then added in order; otherwise torch sums."""
+    over H*W rows divided by H*W. In the kernel's fixed order, each tile's
+    part of an image (`tile_segments`) is summed in 8 stripes, stripe s
+    adding the part's rows s, s + 8, s + 16, ... in turn, then the stripes
+    in order; the parts' sums are added in tile order (one part where a
+    tile holds whole images). Otherwise torch sums."""
     b, h, w, c = v.shape
     if not kernel_order:
         return v.sum(dim=(1, 2), keepdim=True) / (h * w)
     rows = v.reshape(b, h * w, c)
-    acc = rows.new_zeros((b, _STRIPES, c))
-    for r0 in range(0, h * w, _STRIPES):
-        part = rows[:, r0:r0 + _STRIPES]
-        acc[:, :part.shape[1]] += part
-    total = acc[:, 0]
-    for s in range(1, _STRIPES):
-        total = total + acc[:, s]
+    total = None
+    for p0, p1 in tile_segments(h, w, c):
+        acc = rows.new_zeros((b, _STRIPES, c))
+        for r0 in range(p0, p1, _STRIPES):
+            part = rows[:, r0:min(r0 + _STRIPES, p1)]
+            acc[:, :part.shape[1]] += part
+        seg = acc[:, 0]
+        for s in range(1, _STRIPES):
+            seg = seg + acc[:, s]
+        total = seg if total is None else total + seg
     return (total / (h * w))[:, None, None, :]
 
 
@@ -150,8 +170,21 @@ def se_basic_block_s8_plain(x: torch.Tensor, p: QBlockParams,
     return out.to(out_dtype)
 
 
-def _scratch(shape, dtype, like):
-    return torch.empty(shape, dtype=dtype, device=like.device)
+_WORKSPACE = {}
+
+
+def _workspace_bytes(key) -> int:
+    """Bytes of the kernel's scratch for one call's shape, from the library
+    (it lays the scratch out), once per shape."""
+    nbytes = _WORKSPACE.get(key)
+    if nbytes is None:
+        fn = _lib.function("qblock", "reid_se_basic_block_s8_workspace",
+                           [ctypes.c_int] * 7
+                           + [ctypes.POINTER(ctypes.c_longlong)])
+        out = ctypes.c_longlong(0)
+        _lib.check(fn(*key, ctypes.byref(out)), NAME)
+        nbytes = _WORKSPACE[key] = out.value
+    return nbytes
 
 
 def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
@@ -189,38 +222,28 @@ def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("se_basic_block_s8 takes contiguous, 16-byte "
                              "aligned tensors on one device")
-    m = b * h * w
-    i8, f32 = torch.int8, torch.float32
-    xq = _scratch((m, cin), i8, x)
-    xqd = _scratch((m, cin), i8, x) if down else None
-    y1 = _scratch((m, cout), f32, x) if ibn else None
-    hq = _scratch((m, cout), i8, x)
-    y2 = _scratch((m, cout), f32, x)
-    stats = _scratch((2, b, cout), f32, x) if ibn else None
-    pooled = _scratch((b, cout), f32, x)
-    gate = _scratch((b, cout), f32, x)
-    branch = _scratch((m, cout), f32, x) if down else None
+    work = torch.empty(_workspace_bytes((b, h, w, cin, cout, int(ibn),
+                                         int(down))),
+                       dtype=torch.uint8, device=x.device)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
 
     def opt(t):
-        return _lib.ptr(t) if t is not None else None
+        return t.data_ptr() if t is not None else None
 
     vp, fl, ci = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
     fn = _lib.function("qblock", "reid_se_basic_block_s8",
-                       [vp] * 7 + [fl, fl] + [vp] * 5 + [fl] + [vp] * 13
+                       [vp] * 7 + [fl, fl] + [vp] * 5 + [fl] + [vp] * 5
                        + [ci] * 8 + [vp])
-    err = fn(_lib.ptr(x), _lib.ptr(p.w1), _lib.ptr(p.w2), _lib.ptr(p.a1),
-             _lib.ptr(p.c1), _lib.ptr(p.a2), _lib.ptr(p.c2),
-             p.inv_sx1, p.inv_sx2, _lib.ptr(p.wfc1), _lib.ptr(p.wfc2),
+    err = fn(x.data_ptr(), p.w1.data_ptr(), p.w2.data_ptr(), p.a1.data_ptr(),
+             p.c1.data_ptr(), p.a2.data_ptr(), p.c2.data_ptr(),
+             p.inv_sx1, p.inv_sx2, p.wfc1.data_ptr(), p.wfc2.data_ptr(),
              opt(p.wd), opt(p.ad), opt(p.cd),
              p.inv_sxd if down else 0.0,
              opt(p.dq1_vec) if ibn else None,
              opt(p.in_scale) if ibn else None,
              opt(p.in_bias) if ibn else None,
-             _lib.ptr(xq), opt(xqd), opt(y1), _lib.ptr(hq), _lib.ptr(y2),
-             opt(stats), _lib.ptr(pooled), _lib.ptr(gate), opt(branch),
-             _lib.ptr(out), b, h, w, cin, cout, mip, int(ibn),
-             int(x.dtype == torch.float32), _lib.stream_of(x))
+             work.data_ptr(), out.data_ptr(), b, h, w, cin, cout, mip,
+             int(ibn), int(x.dtype == torch.float32), _lib.stream_of(x))
     _lib.check(err, NAME)
     _lib.count_launch(NAME, (h, w, cin, cout, int(ibn)))
     return out

@@ -179,16 +179,35 @@ def test_conv3x3_s8_variants_reject_what_they_cannot_take(cuda, name):
 FLAVORS = {"identity": (128, 128, False, False),
            "down": (256, 512, True, False),
            "ibn": (128, 128, False, True),
-           "ibn256": (256, 256, False, True)}
+           "ibn256": (256, 256, False, True),
+           "identity512": (512, 512, False, False),
+           "down128": (64, 128, True, False)}
+# (flavor, batch, H, W): 9x7 images, several to a tile; then the trunk's
+# own geometries at a small batch: block22's 32x16 c128 IBN, whose images
+# span two 256-row tiles, block32's 16x8 c256 IBN, one image a tile,
+# block41's 16x8 256 -> 512 down and block42's 16x8 c512 identity; and a
+# ragged 20x13 whose images exceed a tile (19 rows and 1 row of 13 pixels
+# at Cout = 128, 9 + 9 + 2 at 256), the down GEMM's 256-row tiles among
+# them (Cout = 128).
+BLOCK_CASES = ([(f, 5, 9, 7) for f in ("identity", "down", "ibn", "ibn256")]
+               + [("ibn", 3, 32, 16), ("ibn256", 4, 16, 8),
+                  ("down", 4, 16, 8), ("identity512", 3, 16, 8),
+                  ("ibn", 2, 20, 13), ("ibn256", 2, 20, 13),
+                  ("identity", 3, 20, 13), ("down128", 3, 20, 13)])
 
 
-@pytest.mark.parametrize("flavor", list(FLAVORS))
-def test_se_basic_block_s8_matches_plain(cuda, flavor):
+def block_case(flavor, b, h, w, dtype, seed, dev):
     cin, cout, down, ibn = FLAVORS[flavor]
-    rng = np.random.default_rng(7)
-    p = block_params(rng, cin, cout, down, ibn, cuda)
-    x = torch.from_numpy(rng.normal(size=(5, 9, 7, cin)).astype(
-        np.float32)).to(torch.bfloat16).to(cuda)
+    rng = np.random.default_rng(seed)
+    p = block_params(rng, cin, cout, down, ibn, dev)
+    x = torch.from_numpy(rng.normal(size=(b, h, w, cin)).astype(
+        np.float32)).to(dtype).to(dev)
+    return x, p, ibn
+
+
+@pytest.mark.parametrize("flavor,b,h,w", BLOCK_CASES)
+def test_se_basic_block_s8_matches_plain(cuda, flavor, b, h, w):
+    x, p, ibn = block_case(flavor, b, h, w, torch.bfloat16, 7, cuda)
     reset_launch_counts()
     got = tqb.se_basic_block_s8(x, p, ibn=ibn)
     assert launch_counts()[tqb.NAME] == 1
@@ -197,14 +216,14 @@ def test_se_basic_block_s8_matches_plain(cuda, flavor):
     within(got.float().cpu().numpy(), want.float().cpu().numpy())
 
 
-@pytest.mark.parametrize("flavor", ["down", "ibn"])
-def test_se_basic_block_s8_f32_matches_plain(cuda, flavor):
-    cin, cout, down, ibn = FLAVORS[flavor]
-    rng = np.random.default_rng(8)
-    p = block_params(rng, cin, cout, down, ibn, cuda)
-    x = torch.from_numpy(rng.normal(size=(3, 8, 6, cin)).astype(
-        np.float32)).to(cuda)
+@pytest.mark.parametrize("flavor,b,h,w",
+                         [("down", 3, 8, 6), ("ibn", 3, 8, 6),
+                          ("ibn", 2, 32, 16), ("down", 3, 16, 8)])
+def test_se_basic_block_s8_f32_matches_plain(cuda, flavor, b, h, w):
+    x, p, ibn = block_case(flavor, b, h, w, torch.float32, 8, cuda)
+    reset_launch_counts()
     got = tqb.se_basic_block_s8(x, p, ibn=ibn, out_dtype=torch.float32)
+    assert launch_counts()[tqb.NAME] == 1
     want = tqb.se_basic_block_s8_plain(x, p, ibn=ibn,
                                        out_dtype=torch.float32)
     torch.cuda.synchronize()

@@ -93,12 +93,22 @@ FLAVORS = {"identity": (8, 8, False, False), "down": (16, 8, True, False),
            "ibn": (8, 8, False, True)}
 
 
-@pytest.mark.parametrize("flavor", list(FLAVORS))
+# An IBN block whose images span the kernel's output tiles: at Cout = 8 a
+# tile holds 256 rows, 16 of a 32x16 image's 32 rows, so the plain version
+# sums the per-image means in its cross-tile order (`tile_segments`).
+SPANNING = {"ibn_spanning": (8, 8, False, True)}
+
+
+@pytest.mark.parametrize("flavor", list(FLAVORS) + list(SPANNING))
 def test_plain_matches_jax_reference_random_params(flavor):
-    cin, cout, down, ibn = FLAVORS[flavor]
-    rng = np.random.default_rng({"identity": 1, "down": 2, "ibn": 3}[flavor])
+    cin, cout, down, ibn = {**FLAVORS, **SPANNING}[flavor]
+    rng = np.random.default_rng({"identity": 1, "down": 2, "ibn": 3,
+                                 "ibn_spanning": 10}[flavor])
     p = jax_params(rng, cin, cout, down=down, ibn=ibn)
-    x = jnp.asarray(rng.normal(size=(3, 6, 4, cin)), jnp.bfloat16)
+    shape = (2, 32, 16) if flavor in SPANNING else (3, 6, 4)
+    if flavor in SPANNING:
+        assert len(tqb.tile_segments(32, 16, cout)) == 2
+    x = jnp.asarray(rng.normal(size=(*shape, cin)), jnp.bfloat16)
     want = jqb.qblock_reference(x, p, ibn=ibn)
     got = tqb.se_basic_block_s8(
         torch.tensor(np.asarray(x.astype(jnp.float32))).to(
