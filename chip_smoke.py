@@ -10,8 +10,8 @@ Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build    nvcc of every kernel source in reid_tpu_torch/csrc, all
               started together, into reid_tpu_torch/_build; each kernel's
-              registers and spill bytes from the -Xptxas -v logs (K1, K2
-              and K6 must not spill);
+              registers and spill bytes from the -Xptxas -v logs (no kernel
+              may spill);
   3. kernels  each kernel at each call site of the track path, on a batch of
               B = 2048 crops (a 32-frame chunk of 64 detection slots). K1
               (`conv3x3_s8`, csrc/qconv.cu) and K2's three GEMMs
@@ -24,8 +24,14 @@ Phases, one JSON line each:
               (N = 256 where Cout allows), each with its own epilogue; K2's
               keep the IBN statistics, the SE pooling and the residual on
               chip where a tile holds what they need. K3 and K5 run on the
-              mma.sync core of csrc/igemm_s8.cuh, K4 on its own mma.sync
-              slab. Each is held
+              same mainloop, one launch a call: K3 with N tiles of the nine
+              taps of 16 channels and a box of whole image rows plus a
+              halo row above and below, its product summed over the taps
+              on chip (along x by shuffles, along y through shared
+              memory) while the other consumer warpgroup runs its
+              products; K5 with TMA's im2col mode loading each tap's rows
+              of 128 or 256 flat output pixels. K4 runs on its own
+              mma.sync slab. Each is held
               against its plain PyTorch version (conv3x3_s8 exactly, the
               fused SE block at rtol = atol = 1e-4 on >= 99.9% of elements
               and 5e-2 on all, and whether it is bit-equal), and timed with
@@ -45,7 +51,10 @@ Phases, one JSON line each:
               much room the limit has when the summation orders differ.
               At K1's call sites K3-K5 (`conv3x3_s8_ncat`, `_bitshift`,
               `_dma`) too, each held equal to its plain version and to K1
-              and timed the same way;
+              and timed the same way, with its time before this design
+              (`before_ms`), a torch.profiler split of one call's launches
+              (`launches_per_call`) and the device memory a call allocates
+              beside its output (`scratch_bytes`, 0 for K3 and K5);
   3b. probe   `reid_tpu_torch.qconv_probe.run()`, the path of K3-K5: the
               bf16 conv, `torch._int_mm` and K1/K3/K4/K5 at the probe's
               four layer shapes (B = 512), every kernel exact against its
@@ -62,7 +71,9 @@ Phases, one JSON line each:
               background the camera pans by PAN px a frame: the chunked
               path's device affines within 1 px of the pan and within
               1e-3 px of the CPU's on the same frames, the step path's
-              (`estimate_affine` on the host) within 1 px of the pan;
+              (`estimate_affine` on the host) within 1 px of the pan; then
+              strongsort --chunk 32 once more without --int8, the default
+              bf16 embed (cuDNN), its fps and stage split;
   5. embed    the card's int8 embed against the same quantized model on the
               CPU (plain kernel versions), cosine of [feat || logits];
   6. retrieval `reid_tpu_torch.cli.inference` (the body of
@@ -141,6 +152,21 @@ VARIANT_REPLACES = {"conv3x3_s8_ncat": "reid_tpu/ops/qconv.py:188",
 # the botsort scene's camera pan in px per frame: one bin of the device
 # estimator's 4x downscaled plane at 1080p in each axis
 PAN = (4, -4)
+# K3's and K5's ms at K1_SITES (B = 2048, bf16) and at the probe's four
+# configurations (B = 512) before their wgmma designs (two launches a
+# call on the mma.sync core, the product or the im2col buffer in device
+# memory), measured as here on an NVIDIA H100 80GB HBM3 at 700 W
+VARIANT_BEFORE_MS = {
+    "conv3x3_s8_ncat": {"block21/conv2": 4.536, "block31/conv2": 2.550,
+                        "stage2 32x16 c128": 1.216,
+                        "stage3 16x8  c256": 0.6505,
+                        "stage4 16x8  c512": 1.558,
+                        "fc-stage4 8x4 c512": 0.4273},
+    "conv3x3_s8_dma": {"block21/conv2": 1.554, "block31/conv2": 1.164,
+                       "stage2 32x16 c128": 0.4560,
+                       "stage3 16x8  c256": 0.3327,
+                       "stage4 16x8  c512": 0.9920,
+                       "fc-stage4 8x4 c512": 0.2762}}
 K2_SOURCE, K2_REPLACES = ("reid_tpu_torch/csrc/qblock.cu",
                           "reid_tpu/ops/qblock.py:313")
 # K2's ms at K2_SITES before its wgmma design (the launch sequence on the
@@ -226,8 +252,8 @@ def ptxas_kernels(log):
 
 def phase_build():
     """Every kernel source built at once; each kernel's registers and
-    spills from ptxas. K1 (qconv), K2 (qblock) and K6 (distance) must not
-    spill: the wgmma consumers hold 128 s32 accumulators a thread."""
+    spills from ptxas. No kernel may spill: the wgmma consumers of K1,
+    K2 and K5 hold 128 s32 accumulators a thread, K3's 144."""
     from reid_tpu_torch.ops import _lib
     names = sorted(f[:-3] for f in os.listdir(_lib.CSRC) if f.endswith(".cu"))
     res = _lib.build(names)
@@ -237,7 +263,7 @@ def phase_build():
             ptxas[n] = ptxas_kernels(f.read())
     emit("build", kernels=names, built=res["built"], seconds=res["seconds"],
          ptxas=ptxas)
-    for n in ("qconv", "qblock", "distance"):
+    for n in names:
         assert ptxas[n], (n, "no ptxas report: was the library rebuilt?")
         for k in ptxas[n]:
             assert k["spill_stores"] == 0 and k["spill_loads"] == 0, k
@@ -283,7 +309,7 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
 
     qm, seen = quantized_trunk(crops.device, dtype, calib, crops)
     esize = torch.finfo(dtype).bits // 8
-    rows = []
+    rows, split_later = [], []
     with torch.inference_mode():
         for site, (h, w, cin, cout) in K1_SITES:
             mod = qm.get_submodule(site.replace("/", "."))
@@ -325,6 +351,7 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
                 if vname == qconv.NAME:
                     continue
                 vargs = (xq, mod.mm.wt, wn, mod.scale, dtype)
+                scratch = scratch_bytes(lambda: kernel(*vargs))
                 vgot, vwant = kernel(*vargs), plain_fn(*vargs)
                 torch.cuda.synchronize()
                 verr = (vgot.float() - vwant.float()).abs().max().item()
@@ -337,10 +364,16 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
                     path="qconv probe", site=[h, w, cin, cout],
                     batch=xq.shape[0], out_dtype=str(dtype), max_abs_err=verr,
                     ms=time_ms(lambda: kernel(*vargs)),
+                    before_ms=VARIANT_BEFORE_MS.get(vname, {}).get(site),
                     plain_ms=time_ms(lambda: plain_fn(*vargs), reps=3,
                                      warm=1),
-                    bound_ms=bms, bound_by=by, library_ms=lib_ms))
-                emit(f"kernel {rows[-1]['name']}", **rows[-1])
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                    scratch_bytes=scratch))
+                if vname != qconv.BITSHIFT:
+                    assert scratch == 0, rows[-1]
+                # launches counted after every timing of the phase (a
+                # torch.profiler trace slows the process's later launches)
+                split_later.append((rows[-1], kernel, vargs))
             del got
         for i, site in enumerate(K2_SITES):
             mod = qm.get_submodule(site)
@@ -405,7 +438,13 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
                              device_split_ms=split))
             emit(f"kernel {rows[-1]['name']}", **rows[-1])
             del got
-    del seen, qm
+        for row, kernel, vargs in split_later:
+            row["launches_per_call"] = len(launch_split(
+                lambda: kernel(*vargs)))
+            if row["name"].split()[0] != qconv.BITSHIFT:
+                assert row["launches_per_call"] == 1, row
+            emit(f"kernel {row['name']}", **row)
+    del seen, qm, split_later
     torch.cuda.empty_cache()
     return rows
 
@@ -515,6 +554,21 @@ def launch_split(fn, reps=5):
     return [[full[0][i].name[:90], statistics.median(
         t[i].time_range.elapsed_us() / 1e3 for t in full)]
         for i in range(n)]
+
+
+def scratch_bytes(fn):
+    """Device memory that one fn() call allocates beside its result (the
+    caching allocator's peak over the call, less the result's blocks)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - base  # the result's blocks
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak - kept
 
 
 def k2_launch_bytes(names, b, h, w, cin, cout, mip, down, esize):
@@ -651,6 +705,14 @@ def phase_track(tmp, n_frames, chunk, step_frames, profile=False):
         assert run["rows"] > 0 and run["distinct_ids"] >= 40, (name, run)
         for k in ("conv3x3_s8", "se_basic_block_s8"):
             assert run["launches"].get(k, 0) > 0, (name, k, run["launches"])
+    # the default bf16 embed (cuDNN convolutions): no int8 kernel runs
+    bf16 = run_track([a for a in base if a != "--int8"]
+                     + ["--chunk", str(chunk), "--save_txt",
+                        os.path.join(tmp, "chunk_bf16.txt")])
+    bf16.pop("affines")
+    emit("track chunked bf16", chunk=chunk, **bf16)
+    assert bf16["rows"] > 0 and bf16["distinct_ids"] >= 40, bf16
+    assert not bf16["launches"], bf16["launches"]
     return chunked, step
 
 
@@ -724,7 +786,7 @@ def phase_probe(kind):
     version and K1. Returns the kernel rows and the path's counts."""
     import torch
     from reid_tpu_torch import qconv_probe
-    from reid_tpu_torch.ops import _lib
+    from reid_tpu_torch.ops import _lib, qconv
 
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
@@ -744,14 +806,18 @@ def phase_probe(kind):
                 (res["config"], row)
             name = row["kernel"]
             k1 = name == "conv3x3_s8"
+            if name != qconv.BITSHIFT:
+                assert row["launches_per_call"] == 1, (res["config"], row)
             rows.append(dict(
                 name=f"{name} probe {res['config']}", route="cuda",
                 source=K1_SOURCE if k1 else VARIANT_SOURCE,
                 replaces=K1_REPLACES if k1 else VARIANT_REPLACES[name],
                 path="qconv probe", shape=res["shape"],
+                before_ms=VARIANT_BEFORE_MS.get(name, {}).get(res["config"]),
                 **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "tops", "x_bf16")}))
+                                       "tops", "x_bf16",
+                                       "launches_per_call")}))
     for name in ("conv3x3_s8",) + tuple(VARIANT_REPLACES):
         assert counts.get(name, 0) > 0, (name, counts)
     return rows, counts

@@ -119,9 +119,54 @@ def conv3x3_s8(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
 NCAT, BITSHIFT, DMA = ("conv3x3_s8_ncat", "conv3x3_s8_bitshift",
                        "conv3x3_s8_dma")
 _TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-# device-memory budget of the per-block intermediate of ncat (the s32
-# product) and dma (the int8 im2col buffer) when img_block is 0
+# memory budget of the plain versions' per-block intermediate (ncat's s32
+# product, dma's int8 im2col buffer) when img_block is 0
 SCRATCH_BYTES = 256 << 20
+# K3's tile on the card: 128 box rows x the nine taps of 16 output channels
+NCAT_BM, NCAT_GROUP = 128, 16
+
+
+def ncat_plan(b: int, h: int, w: int, img_block: int = 0) -> dict:
+    """K3's A boxes on the card: whole image rows (bw = W) of one
+    128-row tile. Where an image fits, bn whole images a box (at most
+    `img_block` where positive) and no halo. Else bh = 128 // W rows, the
+    first and the last of them halo rows whose products the box computes
+    and drops, so a box advances step_y = bh - 2 output rows. `recomputed`
+    is the share of the tiles' rows that are not output pixels. Raises
+    ValueError where a box cannot hold an output row and its halo."""
+    if h * w <= NCAT_BM:
+        bn = max(1, min(NCAT_BM // (h * w), b))
+        if img_block > 0:
+            bn = min(bn, img_block)
+        bh, halo = h, 0
+    else:
+        bh, bn, halo = NCAT_BM // w, 1, 1
+        if bh < 3:
+            raise ValueError(f"{NCAT}: W = {w} leaves no output row in a "
+                             f"{NCAT_BM}-pixel box with its halo rows")
+    step_y = bh - 2 * halo
+    tiles_y = -(-h // step_y)
+    tiles_m = tiles_y * -(-b // bn)
+    return dict(bw=w, bh=bh, bn=bn, halo=halo, step_y=step_y,
+                tiles_y=tiles_y, tiles_m=tiles_m,
+                recomputed=1.0 - b * h * w / (tiles_m * NCAT_BM)
+                if tiles_m else 0.0)
+
+
+def ncat_group_weight(wn: torch.Tensor) -> torch.Tensor:
+    """`pack_ncat_weight`'s (9*Cout, Cin) -> (Cout/G, 9, G, Cin): the order
+    in which K3's weight map reads an N tile, all nine taps of G = 16
+    output channels (a view; the kernel reads `wn` itself)."""
+    cout = wn.shape[0] // 9
+    return wn.reshape(9, cout // NCAT_GROUP, NCAT_GROUP, -1).transpose(0, 1)
+
+
+def dma_plan(b: int, h: int, w: int, cout: int) -> dict:
+    """K5's tiles on the card: bm consecutive output pixels in flat NHW
+    order (128 where Cout % 256 == 0, with 256 channels; else 256 with
+    128), crossing image rows and images."""
+    bm = 128 if cout % 256 == 0 else 256
+    return dict(bm=bm, tiles_m=-(-b * h * w // bm))
 
 
 def pack_ncat_weight(wt: torch.Tensor) -> torch.Tensor:
@@ -142,9 +187,10 @@ def unpack_ncat_weight(wn: torch.Tensor) -> torch.Tensor:
 
 def img_block_for(b: int, h: int, w: int, row_bytes: int,
                   img_block: int = 0) -> int:
-    """Images per block: `img_block` if positive, else as many as keep a
-    block's intermediate of `row_bytes` a row within SCRATCH_BYTES; at
-    most the batch, and few enough that a block's rows fit an int32."""
+    """Images per block of a plain version: `img_block` if positive, else
+    as many as keep a block's intermediate of `row_bytes` a row within
+    SCRATCH_BYTES; at most the batch, and few enough that a block's rows
+    fit an int32."""
     if img_block <= 0:
         img_block = SCRATCH_BYTES // (h * w * row_bytes)
     return max(1, min(b, img_block, (2 ** 31 - 1) // (h * w * row_bytes)))
@@ -247,42 +293,40 @@ def conv3x3_s8_ncat(x: torch.Tensor, wn: torch.Tensor, scale: torch.Tensor,
                     img_block: int = 0, out_dtype=torch.bfloat16
                     ) -> torch.Tensor:
     """`conv3x3_s8`'s contract with the weight from `pack_ncat_weight`
-    (9*Cout, Cin): one s8 GEMM against all nine taps' weights, then the
-    tap sum. `img_block` images per block bound the s32 product in device
-    memory (0: from SCRATCH_BYTES)."""
+    (9*Cout, Cin): one s8 product against all nine taps' weights, then the
+    tap sum. On the card one launch whose tiles keep the product in shared
+    memory (`ncat_plan`); `img_block` caps the images of one tile box, as
+    it caps the images of a block in the reference (0: as many as fit).
+    Raises ValueError where W is too wide for a box (`ncat_plan`)."""
     if x.device.type == "cpu":
         return conv3x3_s8_ncat_plain(x, wn, scale, out_dtype, img_block)
     b, h, w, cin = x.shape
     cout = wn.shape[0] // 9
     _check(NCAT, x, wn, scale, out_dtype, cout, (9 * cout, cin))
-    img_block = img_block_for(b, h, w, 4 * 9 * cout, img_block)
+    plan = ncat_plan(b, h, w, img_block)
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
-    prod = torch.empty((img_block * h * w, 9 * cout), dtype=torch.int32,
-                       device=x.device)
     _launch(NCAT, x, out, _lib.ptr(x), _lib.ptr(wn), _lib.ptr(scale),
-            _lib.ptr(out), _lib.ptr(prod), b, h, w, cin, cout, img_block,
-            int(out_dtype == torch.float32), _lib.stream_of(x))
+            _lib.ptr(out), b, h, w, cin, cout, plan["bh"], plan["bn"],
+            plan["halo"], int(out_dtype == torch.float32), _lib.stream_of(x))
     return out
 
 
 def conv3x3_s8_dma(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
                    img_block: int = 0, out_dtype=torch.bfloat16
                    ) -> torch.Tensor:
-    """`conv3x3_s8`'s contract: the masked im2col written to a
-    (rows, 9*Cin) int8 buffer, then one s8 GEMM over K = 9*Cin.
-    `img_block` images per block bound the buffer (0: from
-    SCRATCH_BYTES)."""
+    """`conv3x3_s8`'s contract: the masked im2col of each tap, then one s8
+    product over K = 9*Cin. On the card one launch: TMA's im2col mode
+    copies each tap's rows of a tile of flat output pixels into shared
+    memory (`dma_plan`), no buffer in device memory. `img_block` bounds
+    only the plain version's blocking: the card's tiles cross images."""
     if x.device.type == "cpu":
         return conv3x3_s8_dma_plain(x, wt, scale, out_dtype, img_block)
     b, h, w, cin = x.shape
     cout = wt.shape[0]
     _check(DMA, x, wt, scale, out_dtype, cout, (cout, 9 * cin))
-    img_block = img_block_for(b, h, w, 9 * cin, img_block)
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
-    cols = torch.empty((img_block * h * w, 9 * cin), dtype=torch.int8,
-                       device=x.device)
     _launch(DMA, x, out, _lib.ptr(x), _lib.ptr(wt), _lib.ptr(scale),
-            _lib.ptr(out), _lib.ptr(cols), b, h, w, cin, cout, img_block,
+            _lib.ptr(out), b, h, w, cin, cout, dma_plan(b, h, w, cout)["bm"],
             int(out_dtype == torch.float32), _lib.stream_of(x))
     return out
 

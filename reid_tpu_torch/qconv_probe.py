@@ -9,9 +9,10 @@ hand-written kernels: K1 `roll` (`conv3x3_s8`), K3 `ncat`, K4 `bitshift`
 and K5 `dma` (the JAX probe leaves `dma` out). Each row holds exactness
 against the kernel's plain version and K1 (f32 out, unit scale), the median
 ms by CUDA events, TOP/s, the speed against bf16, the plain version's ms,
-the least time the card could take for the work (`utils.timing.bound`)
-and the kernel launches of the configuration. One JSON line per
-configuration.
+the least time the card could take for the work (`utils.timing.bound`),
+the kernel launches of the configuration and the device work that one
+call launches (the nodes of a captured CUDA graph, after all the
+timings). One JSON line per configuration.
 
     python -m reid_tpu_torch.qconv_probe            # on the card
 
@@ -21,6 +22,7 @@ and prints no time.
 
 from __future__ import annotations
 
+import ctypes
 import json
 from typing import List, Sequence, Tuple
 
@@ -74,6 +76,23 @@ def make_inputs(rng: np.random.Generator, b, h, w, cin, cout, device):
                 scale=torch.from_numpy(sc).to(device),
                 xbf=torch.from_numpy(xbf).to(device, torch.bfloat16),
                 wbf=torch.from_numpy(wbf).to(device, torch.bfloat16))
+
+
+def device_launches(fn) -> int:
+    """The work that one fn() call puts on the card: the nodes (kernels,
+    memsets and copies alike) of a CUDA graph captured around it, counted
+    by the CUDA driver's cuGraphGetNodes."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    nodes = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(nodes))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA error {err}")
+    return nodes.value
 
 
 def probe_config(cfg, rng, device="cuda", reps=20) -> dict:
@@ -139,13 +158,23 @@ def probe_config(cfg, rng, device="cuda", reps=20) -> dict:
 
 
 def run(configs: Sequence = CONFIGS, device="cuda", reps=20) -> List[dict]:
-    """Probe each configuration, printing one JSON line each."""
+    """Probe each configuration, printing one JSON line each. On the card,
+    each kernel's device launches a call (`launches_per_call`, from a
+    captured CUDA graph) are counted once every configuration is timed."""
     rng = np.random.default_rng(0)
-    results = []
-    for cfg in configs:
-        res = probe_config(cfg, rng, device, reps)
+    results = [probe_config(cfg, rng, device, reps) for cfg in configs]
+    if torch.device(device).type == "cuda":
+        for (_, b, h, w, cin, cout), res in zip(configs, results):
+            d = make_inputs(np.random.default_rng(0), b, h, w, cin, cout,
+                            device)
+            for row in res["rows"]:
+                if "kernel" in row:
+                    kernel = KERNELS[row["name"]][0]
+                    row["launches_per_call"] = device_launches(
+                        lambda: kernel(d["x8"], d["wt"], d["wn"], d["scale"],
+                                       torch.bfloat16))
+    for res in results:
         print(json.dumps(res), flush=True)
-        results.append(res)
     return results
 
 

@@ -1,7 +1,17 @@
-"""SERes18-IBN of the port against the flax model, in float32 eval mode,
-from a random flax init carried across by the weight bridge: the whole
-model at 80x40 crops and one SEBasicBlock of each flavor at narrow widths.
-Tolerance: rtol = atol = 1e-4 (f32, another convolution algorithm)."""
+"""SERes18-IBN of the port against the flax model in eval mode, from a
+random flax init carried across by the weight bridge: the whole model at
+80x40 crops in float32 and in bfloat16 (the default track embed), and one
+SEBasicBlock of each flavor at narrow widths in float32.
+
+Tolerances:
+  * float32: rtol = atol = 1e-4 (another convolution algorithm).
+  * bfloat16, against the jitted flax program: every element within 2^-6
+    of the tensor's largest magnitude (two bf16 ulps there) and a cosine
+    >= 0.9999 per row. Both frameworks compute each bf16 convolution in
+    f32 and round its output, but in another order and algorithm, so the
+    two differ by rounding at each of the 18 layers; at this input each
+    lies as far from the float32 model as the other (mean abs error
+    0.0031 for flax, 0.0034 for the port, on features up to 2.7)."""
 
 import jax
 import jax.numpy as jnp
@@ -46,24 +56,35 @@ def _variables(module, x, seed):
                                          np.random.default_rng(seed))}
 
 
-def test_seres18_matches_flax(tmp_path):
-    model = jbuild("seres18", num_classes=16)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_seres18_matches_flax(tmp_path, dtype):
+    model = jbuild("seres18", num_classes=16, dtype=getattr(jnp, dtype))
     x = np.random.default_rng(0).normal(size=(2, 80, 40, 3)).astype(
         np.float32)
     variables = _variables(model, x, 0)
-    fj, lj = model.apply(variables, jnp.asarray(x), train=False)
+    fj, lj = jax.jit(lambda v, xx: model.apply(
+        v, xx.astype(getattr(jnp, dtype)), train=False))(
+            variables, jnp.asarray(x))
 
     path = str(tmp_path / "seres18.npz")
     save_npz(path, variables)                 # the CLI's --ckpt format
-    tm = build_model("seres18", num_classes=16, device="cpu")
+    tm = build_model("seres18", num_classes=16, dtype=getattr(torch, dtype),
+                     device="cpu")
     load_flax_variables(tm, load_npz(path))
     with torch.no_grad():
-        ft, lt = tm(torch.from_numpy(x))
+        ft, lt = tm(torch.from_numpy(x).to(getattr(torch, dtype)))
     assert ft.shape == (2, 512) and lt.shape == (2, 16)
-    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-4,
-                               atol=1e-4)
-    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
-                               atol=1e-4)
+    assert ft.dtype == lt.dtype == getattr(torch, dtype)
+    for got, want in ((ft, fj), (lt, lj)):
+        got = got.float().numpy()
+        want = np.asarray(want, np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+            continue
+        assert np.abs(got - want).max() <= 2.0 ** -6 * np.abs(want).max()
+        cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                     * np.linalg.norm(want, axis=1))
+        assert cos.min() >= 0.9999, cos
 
 
 @pytest.mark.parametrize("ibn,down,stride,cin,planes",

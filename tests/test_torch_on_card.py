@@ -10,7 +10,8 @@ Tolerances:
   * conv3x3_s8: exact. The s32 accumulator is exact on both sides and the
     rescale is one f32 multiply.
   * conv3x3_s8_ncat, _bitshift and _dma: exact against their plain
-    versions and against conv3x3_s8, for the same reason.
+    versions and against conv3x3_s8, for the same reason; each call one
+    launch that allocates no device memory beside its output.
   * se_basic_block_s8: rtol = atol = 1e-4 on >= 99.9% of the elements and
     5e-2 on all, the plain version's tolerance against the JAX reference.
     The plain version sums the per-image means and the SE dot products in
@@ -129,40 +130,66 @@ def test_conv3x3_s8_rejects_what_it_cannot_take(cuda):
         tq.conv3x3_s8(x.float(), wt, s)
 
 
+# each form on (x, K1's packed weight, K3's packed weight, scale, out
+# dtype, img_block)
 VARIANTS = {
-    tq.NCAT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_ncat(
-        x, tq.pack_ncat_weight(wt), s, blk, dt),
-    tq.BITSHIFT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_bitshift(
+    tq.NCAT: lambda x, wt, wn, s, dt, blk: tq.conv3x3_s8_ncat(
+        x, wn, s, blk, dt),
+    tq.BITSHIFT: lambda x, wt, wn, s, dt, blk: tq.conv3x3_s8_bitshift(
         x, wt, s, dt),
-    tq.DMA: lambda x, wt, s, dt, blk: tq.conv3x3_s8_dma(x, wt, s, blk, dt)}
+    tq.DMA: lambda x, wt, wn, s, dt, blk: tq.conv3x3_s8_dma(
+        x, wt, s, blk, dt)}
 PLAINS = {
-    tq.NCAT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_ncat_plain(
-        x, tq.pack_ncat_weight(wt), s, dt, blk),
-    tq.BITSHIFT: lambda x, wt, s, dt, blk: tq.conv3x3_s8_bitshift_plain(
+    tq.NCAT: lambda x, wt, wn, s, dt, blk: tq.conv3x3_s8_ncat_plain(
+        x, wn, s, dt, blk),
+    tq.BITSHIFT: lambda x, wt, wn, s, dt, blk: tq.conv3x3_s8_bitshift_plain(
         x, wt, s, dt),
-    tq.DMA: lambda x, wt, s, dt, blk: tq.conv3x3_s8_dma_plain(
+    tq.DMA: lambda x, wt, wn, s, dt, blk: tq.conv3x3_s8_dma_plain(
         x, wt, s, dt, blk)}
 
 
+# (B, H, W, Cin, Cout), img_block: 9x7 and 8x4 images smaller than a tile
+# with a ragged last tile; 32x16 and 20x16, K3's halo bands (H = 20 no
+# multiple of a band's 6 rows); Cout = 512, 32 of K3's channel groups;
+# Cin = 64, the 64-byte swizzle; and uneven image blocks.
+VARIANT_CASES = [((7, 32, 16, 128, 128), 3), ((5, 16, 8, 256, 256), 0),
+                 ((3, 5, 7, 128, 256), 2), ((2, 9, 11, 64, 128), 1),
+                 ((5, 9, 7, 64, 128), 0), ((3, 8, 4, 128, 256), 0),
+                 ((3, 32, 16, 128, 256), 0), ((2, 20, 16, 64, 128), 0),
+                 ((2, 16, 8, 128, 512), 0), ((3, 8, 4, 512, 512), 2)]
+
+
 @pytest.mark.parametrize("name", list(VARIANTS))
-@pytest.mark.parametrize("shape,img_block", [((7, 32, 16, 128, 128), 3),
-                                             ((5, 16, 8, 256, 256), 0),
-                                             ((3, 5, 7, 128, 256), 2),
-                                             ((2, 9, 11, 64, 128), 1)])
+@pytest.mark.parametrize("shape,img_block", VARIANT_CASES)
 def test_conv3x3_s8_variants_match_plain_and_k1(cuda, name, shape,
                                                 img_block):
-    """Each of K3-K5 equals its plain version and K1 bit for bit, with an
-    image block that splits the batch unevenly where one is given."""
-    args = conv_inputs(np.random.default_rng(2), *shape, cuda)
+    """Each of K3-K5 equals its plain version and K1 bit for bit in one
+    launch that allocates nothing beside its output."""
+    x, wt, scale = conv_inputs(np.random.default_rng(2), *shape, cuda)
+    wn = tq.pack_ncat_weight(wt)
     for dt in (torch.float32, torch.bfloat16):
+        torch.cuda.synchronize()
         reset_launch_counts()
-        got = VARIANTS[name](*args, dt, img_block)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = VARIANTS[name](x, wt, wn, scale, dt, img_block)
+        torch.cuda.synchronize()
         assert launch_counts() == {name: 1}
-        want = PLAINS[name](*args, dt, img_block)
-        k1 = tq.conv3x3_s8(*args, out_dtype=dt)
+        # the caching allocator rounds a block up to 512 bytes
+        out_bytes = -(-got.numel() * got.element_size() // 512) * 512
+        assert torch.cuda.max_memory_allocated() - base == out_bytes
+        want = PLAINS[name](x, wt, wn, scale, dt, img_block)
+        k1 = tq.conv3x3_s8(x, wt, scale, out_dtype=dt)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert torch.equal(got, k1)
+
+
+def test_conv3x3_s8_ncat_rejects_a_row_too_wide(cuda):
+    """A 64-pixel row leaves no output row in K3's 128-pixel box."""
+    x, wt, s = conv_inputs(np.random.default_rng(3), 1, 4, 64, 64, 128, cuda)
+    with pytest.raises(ValueError):
+        tq.conv3x3_s8_ncat(x, tq.pack_ncat_weight(wt), s)
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))
@@ -171,9 +198,11 @@ def test_conv3x3_s8_variants_reject_what_they_cannot_take(cuda, name):
     wt = torch.zeros((128, 9 * 96), dtype=torch.int8, device=cuda)
     s = torch.ones(128, device=cuda)
     with pytest.raises(ValueError):
-        VARIANTS[name](x, wt, s, torch.bfloat16, 0)
+        VARIANTS[name](x, wt, tq.pack_ncat_weight(wt), s, torch.bfloat16,
+                       0)
     with pytest.raises(TypeError):
-        VARIANTS[name](x.float(), wt, s, torch.bfloat16, 0)
+        VARIANTS[name](x.float(), wt, tq.pack_ncat_weight(wt), s,
+                       torch.bfloat16, 0)
 
 
 FLAVORS = {"identity": (128, 128, False, False),

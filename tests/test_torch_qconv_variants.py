@@ -5,9 +5,12 @@ mode, one image a grid step, f32 out): equal, since the s32 sums are exact
 and the rescale is one f32 multiply. Then, at real widths, all three
 against the JAX oracle `conv3x3_s8_reference` in f32 and bf16 (bf16 rounds
 the same f32 values to nearest even); the image-block invariance of the K3
-and K5 plain versions; the ncat weight packing; the probe's CPU run; and
-that a CPU tensor launches nothing. The CUDA kernels against their plain
-versions are in test_torch_on_card.py."""
+and K5 plain versions; the ncat weight packing and its channel groups; the
+card's tile plans of K3 and K5 (every output pixel covered once, at small
+shapes and at the trunk's) and a pure-torch emulation of each kernel's tile
+walk, fed by the wrapper's plan, equal to `conv3x3_s8_plain` bit for bit;
+the probe's CPU run; and that a CPU tensor launches nothing. The CUDA
+kernels against their plain versions are in test_torch_on_card.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +119,195 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     for name in JAX_KERNELS:
         port(name, *args)
     assert launch_counts() == {}
+
+
+def test_ncat_group_weight_roundtrip():
+    """An N tile of K3 holds all nine taps of 16 output channels: group
+    row t*16 + j is tap t of channel 16*group + j, read from `wn`."""
+    wt = torch.randint(-127, 128, (48, 9 * 64), dtype=torch.int8)
+    wn = tq.pack_ncat_weight(wt)
+    grouped = tq.ncat_group_weight(wn)
+    assert grouped.shape == (3, 9, 16, 64)
+    assert torch.equal(grouped[2, 5, 7], wt[2 * 16 + 7, 5 * 64:6 * 64])
+    assert torch.equal(grouped[1, 0, 3], wn[0 * 48 + 16 + 3])
+    # back to wn's rows and to K1's packing
+    back = grouped.transpose(0, 1).reshape(9 * 48, 64)
+    assert torch.equal(back, wn)
+    assert torch.equal(tq.unpack_ncat_weight(back.contiguous()), wt)
+
+
+def ncat_box(plan, b, h, w, mt):
+    """Tile mt's 128 box rows, as the kernel decodes them: each row's
+    pixel (n, y, x), whether it lies in the tensor (else TMA zero-fills
+    it) and whether it is an output row (`wg::out_row`)."""
+    r = torch.arange(tq.NCAT_BM)
+    bw, bh, bn, halo = plan["bw"], plan["bh"], plan["bn"], plan["halo"]
+    y0 = (mt % plan["tiles_y"]) * plan["step_y"]
+    n0 = (mt // plan["tiles_y"]) * bn
+    xs, yb, n = r % bw, (r // bw) % bh, n0 + r // (bw * bh)
+    y = y0 - halo + yb
+    used = r < bw * bh * bn
+    inside = used & (y >= 0) & (y < h) & (n < b)
+    is_out = inside & (yb >= halo) & (yb < bh - halo)
+    return n, y, xs, inside, is_out
+
+
+def flat_tile(plan, b, h, w, mt):
+    """K5 tile mt's rows: bm consecutive flat output pixels."""
+    m = mt * plan["bm"] + torch.arange(plan["bm"])
+    return m, m < b * h * w
+
+
+@pytest.mark.parametrize("shape", [(5, 9, 7), (3, 8, 4), (3, 20, 16),
+                                   (2, 32, 16), (1, 4, 42), (7, 3, 3),
+                                   (2048, 32, 16), (2048, 16, 8),
+                                   (512, 8, 4)])
+@pytest.mark.parametrize("img_block", [0, 1])
+def test_ncat_plan_covers_every_pixel_once(shape, img_block):
+    b, h, w = shape
+    plan = tq.ncat_plan(b, h, w, img_block)
+    hits = torch.zeros(b * h * w, dtype=torch.int64)
+    for mt in range(plan["tiles_m"]):
+        n, y, xs, _, is_out = ncat_box(plan, b, h, w, mt)
+        hits.index_add_(0, ((n * h + y) * w + xs)[is_out],
+                        torch.ones(int(is_out.sum()), dtype=torch.int64))
+    assert bool((hits == 1).all())
+    assert plan["bn"] <= (img_block or b)
+    if h * w > tq.NCAT_BM:  # the halo rows above and below each box
+        assert plan["halo"] == 1 and plan["bh"] * w <= tq.NCAT_BM
+    share = 1 - b * h * w / (plan["tiles_m"] * tq.NCAT_BM)
+    assert plan["recomputed"] == pytest.approx(share)
+
+
+def test_ncat_plan_at_the_trunk_shapes():
+    """block21 (32x16): 8-row boxes of 6 output rows, a third of the
+    rows recomputed; block31 (16x8) one image and fc-stage4 (8x4) four
+    images a box, no halo."""
+    p21 = tq.ncat_plan(2048, 32, 16)
+    assert (p21["bh"], p21["step_y"], p21["tiles_y"]) == (8, 6, 6)
+    assert p21["recomputed"] == pytest.approx(1 / 3)
+    assert tq.ncat_plan(2048, 16, 8)["recomputed"] == 0.0
+    assert tq.ncat_plan(512, 8, 4)["bn"] == 4
+    assert tq.ncat_plan(512, 8, 4)["recomputed"] == 0.0
+
+
+def test_ncat_plan_rejects_a_row_too_wide():
+    with pytest.raises(ValueError):
+        tq.ncat_plan(1, 4, 64)
+    # an image that fits one box whole needs no halo rows
+    assert tq.ncat_plan(1, 1, 100)["halo"] == 0
+
+
+@pytest.mark.parametrize("shape", [(5, 9, 7), (3, 20, 16), (2048, 32, 16),
+                                   (512, 8, 4), (3, 5, 7)])
+def test_dma_plan_covers_every_pixel_once(shape):
+    b, h, w = shape
+    for cout in (128, 256):
+        plan = tq.dma_plan(b, h, w, cout)
+        assert plan["bm"] == (128 if cout == 256 else 256)
+        hits = torch.zeros(b * h * w, dtype=torch.int64)
+        for mt in range(plan["tiles_m"]):
+            m, ok = flat_tile(plan, b, h, w, mt)
+            hits[m[ok]] += 1
+        assert bool((hits == 1).all())
+
+
+def emulate_ncat(x, wn, scale, out_dtype, img_block=0):
+    """K3's tile walk on the card, in torch: for each box of the plan and
+    each channel group, P = box rows @ group weight (K = Cin, N = 9 x 16);
+    then, as the kernel's epilogue sums, first along x for every box row,
+    Q_dy[r] = sum over dx of mask_dx(r) * P[r + dx, tap (dy, dx)], then
+    along y for each output row, out[r] = sum over dy of mask_dy(r) *
+    Q_dy[r + dy * W]."""
+    b, h, w, cin = x.shape
+    cout, g = wn.shape[0] // 9, tq.NCAT_GROUP
+    plan = tq.ncat_plan(b, h, w, img_block)
+    groups = tq.ncat_group_weight(wn).reshape(cout // g, 9 * g, cin).to(
+        torch.float64)
+    out = torch.zeros((b * h * w, cout), dtype=out_dtype)
+    written = torch.zeros((b * h * w, cout), dtype=torch.int64)
+    r = torch.arange(tq.NCAT_BM)
+    for mt in range(plan["tiles_m"]):
+        n, y, xs, inside, is_out = ncat_box(plan, b, h, w, mt)
+        a = torch.zeros((tq.NCAT_BM, cin), dtype=torch.float64)
+        a[inside] = x[n[inside], y[inside], xs[inside]].to(torch.float64)
+        for grp in range(cout // g):
+            p = (a @ groups[grp].T).to(torch.int64)
+            q = torch.zeros((3, tq.NCAT_BM, g), dtype=torch.int64)
+            for t, (dy, dx) in enumerate(tq._TAPS):
+                ok = (xs + dx >= 0) & (xs + dx < w)
+                src = (r + dx).clamp(0, tq.NCAT_BM - 1)
+                q[dy + 1][ok] += p[src[ok], t * g:(t + 1) * g]
+            acc = torch.zeros((tq.NCAT_BM, g), dtype=torch.int64)
+            for dy in (-1, 0, 1):
+                ok = is_out & (y + dy >= 0) & (y + dy < h)
+                acc[ok] += q[dy + 1][(r + dy * plan["bw"])[ok]]
+            rows = ((n * h + y) * w + xs)[is_out]
+            cols = slice(grp * g, (grp + 1) * g)
+            out[rows, cols] = (acc[is_out].to(torch.float32)
+                               * scale[cols]).to(out_dtype)
+            written[rows, cols] += 1
+    assert bool((written == 1).all())
+    return out.reshape(b, h, w, cout)
+
+
+def emulate_dma(x, wt, scale, out_dtype):
+    """K5's tile walk on the card, in torch: bm flat output pixels a tile,
+    each tap's rows loaded as TMA's im2col mode loads them (the pixel at
+    the tap's offset, zero outside its image), one product over
+    K = 9*Cin per N tile."""
+    b, h, w, cin = x.shape
+    cout = wt.shape[0]
+    plan = tq.dma_plan(b, h, w, cout)
+    bn = 256 if plan["bm"] == 128 else 128
+    out = torch.zeros((b * h * w, cout), dtype=out_dtype)
+    written = torch.zeros(b * h * w, dtype=torch.int64)
+    for mt in range(plan["tiles_m"]):
+        m, ok = flat_tile(plan, b, h, w, mt)
+        mm = torch.where(ok, m, 0)
+        n, y, xs = mm // (h * w), (mm // w) % h, mm % w
+        taps = []
+        for dy, dx in tq._TAPS:
+            inb = ok & (y + dy >= 0) & (y + dy < h) & (xs + dx >= 0) \
+                & (xs + dx < w)
+            a = torch.zeros((plan["bm"], cin), dtype=torch.float64)
+            a[inb] = x[n[inb], (y + dy)[inb], (xs + dx)[inb]].to(
+                torch.float64)
+            taps.append(a)
+        a = torch.cat(taps, dim=1)
+        for nt in range(cout // bn):
+            cols = slice(nt * bn, (nt + 1) * bn)
+            acc = (a @ wt[cols].to(torch.float64).T).to(torch.int64)
+            out[m[ok], cols] = (acc[ok].to(torch.float32)
+                                * scale[cols]).to(out_dtype)
+        written[m[ok]] += 1
+    assert bool((written == 1).all())
+    return out.reshape(b, h, w, cout)
+
+
+@pytest.mark.parametrize("shape,img_block", [
+    ((5, 9, 7, 64, 128), 0),     # two images a box, a ragged last box
+    ((3, 8, 4, 64, 256), 0),     # three images in one box
+    ((3, 8, 4, 64, 128), 2),     # img_block caps the images a box
+    ((2, 20, 16, 64, 128), 0),   # halo boxes, H not a multiple of 6
+    ((1, 32, 16, 128, 128), 0),  # block21's geometry
+    ((1, 4, 42, 64, 128), 0)])   # the widest row with a halo
+def test_ncat_tile_walk_matches_plain(shape, img_block):
+    x, wq, scale = inputs(np.random.default_rng(sum(shape)), *shape)
+    xt, wt, st = torch.from_numpy(x), pack_hwio(wq), torch.from_numpy(scale)
+    wn = tq.pack_ncat_weight(wt)
+    for dt in (torch.float32, torch.bfloat16):
+        got = emulate_ncat(xt, wn, st, dt, img_block)
+        assert torch.equal(got, tq.conv3x3_s8_plain(xt, wt, st, dt))
+
+
+@pytest.mark.parametrize("shape", [(5, 9, 7, 64, 128), (5, 5, 7, 64, 256),
+                                   (3, 8, 4, 64, 128), (2, 20, 16, 64, 256)])
+def test_dma_tile_walk_matches_plain(shape):
+    """Flat tiles that cross image rows and images (M = B*H*W is no
+    multiple of the tile's rows at any of these shapes)."""
+    x, wq, scale = inputs(np.random.default_rng(sum(shape)), *shape)
+    xt, wt, st = torch.from_numpy(x), pack_hwio(wq), torch.from_numpy(scale)
+    for dt in (torch.float32, torch.bfloat16):
+        got = emulate_dma(xt, wt, st, dt)
+        assert torch.equal(got, tq.conv3x3_s8_plain(xt, wt, st, dt))
