@@ -50,15 +50,20 @@
 // conv3x3_s8_bitshift replaces reid_tpu/ops/qconv.py:conv3x3_s8_bitshift
 // (_qconv_bitshift_kernel), which builds the im2col in registers from one
 // loaded copy of the rows (shifts of the u32 view of four packed int8
-// rows) and contracts it in one dot. Here (bitshift_kernel): per 128 x 128
-// output tile and per 64-channel chunk, the tile's 128 rows plus a halo of
-// W + 1 rows on each side are staged into shared memory once (cp.async,
-// zero-filled past the tensor), and the mma.sync A fragments of all nine
-// taps are read from that slab at the tap's row offset, the fragment
-// registers of masked rows set to zero. Each activation byte is read from
-// device memory once per tile; conv3x3_s8 reads it once per tap (up to nine
-// times, mostly from L2). The operation bound is K1's; it runs on mma.sync,
-// a fraction of wgmma's rate.
+// rows) and contracts it in one dot. Here (bitshift_kernel) that copy is
+// a slab in shared memory: per tile of BM flat output pixels and chunk of
+// BK input channels, the tile's rows and W + 1 halo rows on each side,
+// loaded once by one or two 2-D TMA boxes (rows outside the tensor zero-
+// filled) and double buffered across chunks. All nine taps read their A
+// fragments from it by ldmatrix at the tap's row offset dy * W + dx,
+// through TMA's swizzle, and zero in registers the rows whose tap leaves
+// the image; wgmma takes A from those registers and B, the tap's weight
+// tile, from a TMA ring of its own. What bounds it: K1's operations. Each
+// activation byte is read from device memory once per tile and chunk
+// (K1's per-tap boxes read it up to nine times, mostly from L2), plus the
+// slab's 2 (W + 1) halo rows (13% of a 256-row tile at W = 16), and its
+// shared-memory traffic is K1's: a fragment by ldmatrix moves the bytes
+// that wgmma moves reading A by descriptor.
 #include "wgmma_s8.cuh"
 
 namespace reid {
@@ -554,275 +559,461 @@ cudaError_t dispatch(const void* x, const void* wt, const float* sc,
 
 }  // namespace dma
 
-// ---- conv3x3_s8_bitshift's mma.sync pieces ---------------------------------
-namespace k4 {
-
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 64;
-// Shared-memory row stride in bytes: 16-byte aligned for cp.async, and 20
-// words apart so the eight row groups of a fragment load hit distinct banks.
-constexpr int kSRow = kBK + 16;
-constexpr int kThreads = 256;
-
-enum Epilogue : int {
-  kScaleBf16 = 0,  // out bf16 = acc * a[c]
-  kScaleF32 = 1,   // out f32  = acc * a[c]
-};
-
-struct ConvArgs {
-  const int8_t* x;  // (B, H, W, Cin) int8, NHWC
-  const int8_t* wt; // (Cout, 9*Cin) int8, K ordered (tap, cin)
-  const float* a;   // (Cout,) scale
-  void* out;        // (B, H, W, Cout)
-  int nimg, h, w, cin, cout;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// out[row, col .. col + 1] = acc * scale, the plain version's arithmetic
-template <int EPI>
-__device__ __forceinline__ void store2(const ConvArgs& p, long long row,
-                                       int col, int acc0, int acc1) {
-  float v0 = static_cast<float>(acc0);
-  float v1 = static_cast<float>(acc1);
-  v0 = __fmul_rn(v0, p.a[col]);
-  v1 = __fmul_rn(v1, p.a[col + 1]);
-  const long long o = row * p.cout + col;
-  if (EPI == kScaleBf16) {
-    __nv_bfloat162 r;
-    r.x = __float2bfloat16_rn(v0);
-    r.y = __float2bfloat16_rn(v1);
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) +
-                                       o) = r;
-  } else {
-    *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
-        make_float2(v0, v1);
-  }
-}
-
-__device__ __forceinline__ bool tap_ok(int y, int x, int t, int h, int w) {
-  const int yy = y + t / 3 - 1;
-  const int xx = x + t % 3 - 1;
-  return yy >= 0 && yy < h && xx >= 0 && xx < w;
-}
-
 // ---- conv3x3_s8_bitshift ----------------------------------------------------
-// grid: (ceil(M / kBM), Cout / kBN); block: kThreads; dynamic shared memory
-// bitshift_smem_bytes(w). K loop: 64-channel chunks outer, the nine taps
-// inner, so the slab of a chunk serves all nine taps. The slab is double
-// buffered by chunk (the next chunk's slab is requested with the last
-// tap's B tile), the B tile by step.
-__host__ __device__ inline int bitshift_slab_rows(int w) {
-  return kBM + 2 * (w + 1);
-}
+namespace bitshift {
 
-inline int bitshift_smem_bytes(int w) {
-  return (2 * bitshift_slab_rows(w) + 2 * kBN) * kSRow;
-}
+using wg::Shape;
+using wg::Tile;
 
-template <int EPI>
-__global__ void __launch_bounds__(kThreads)
-    bitshift_kernel(const ConvArgs p) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int halo = p.w + 1;
-  const int slab_rows = bitshift_slab_rows(p.w);
-  int8_t* slab0 = smem;
-  int8_t* b0 = smem + 2 * slab_rows * kSRow;
+// A call's shared memory, from the 1024-aligned base: two slabs (each
+// `boxes` TMA boxes of `box_rows` flat rows x BK channels), the B ring of
+// `stages` (BN x BK) tiles, the epilogue's staging (f32's size for both
+// outputs, so the layout does not depend on the output type) and the
+// barriers. ops/qconv.py:bitshift_plan makes the same choices.
+constexpr int kEpiBytes = wg::ScaleEpi<true>::bytes<128, 128>();
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int warp_m = warp & 1;
-  const int warp_n = warp >> 1;
+struct Plan {
+  int halo;        // W + 1: slab rows above the tile's first pixel
+  int box_rows;    // rows of one box: a multiple of 8, at most 256
+  int boxes;       // boxes a slab: 1 or 2
+  int stages;      // B tiles in the ring
+  int slab_bytes;  // one slab buffer, a multiple of 1024
+  int b_off, epi_off, bar_off, smem;
+};
 
-  const int hw = p.h * p.w;
-  const long long m_total = static_cast<long long>(p.nimg) * hw;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int k_total = 9 * p.cin;
-  const int k_tiles = 9 * (p.cin / kBK);
-
-  // bit t of okmask[mt][half]: tap t reaches inside the image for this
-  // thread's fragment row warp_m*64 + mt*16 + g + 8*half (0 past the end)
-  uint32_t okmask[4][2];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + warp_m * 64 + mt * 16 + g + 8 * half;
-      uint32_t bits = 0;
-      if (m < m_total) {
-        const int rem = static_cast<int>(m % hw);
-        const int y = rem / p.w;
-        const int x = rem - y * p.w;
-#pragma unroll
-        for (int t = 0; t < 9; ++t) bits |= tap_ok(y, x, t, p.h, p.w) << t;
-      }
-      okmask[mt][half] = bits;
-    }
-
-  auto load_slab = [&](int chunk, int buf) {
-    int8_t* dst = slab0 + buf * slab_rows * kSRow;
-    for (int q = tid; q < slab_rows * 4; q += kThreads) {
-      const int row = q >> 2;
-      const int col = (q & 3) * 16;
-      const long long m = m0 - halo + row;
-      const bool ok = m >= 0 && m < m_total;
-      const int8_t* src =
-          ok ? p.x + m * p.cin + chunk * kBK + col : p.x;
-      cp_async16(dst + row * kSRow + col, src, ok ? 16 : 0);
-    }
-  };
-  auto load_b = [&](int kt, int buf) {
-    const int chunk = kt / 9;
-    const int tap = kt - chunk * 9;
-    const int k0 = tap * p.cin + chunk * kBK;
-    int8_t* dst = b0 + buf * kBN * kSRow;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * kThreads;
-      const int row = q >> 2;
-      const int col = (q & 3) * 16;
-      cp_async16(dst + row * kSRow + col,
-                 p.wt + static_cast<long long>(n0 + row) * k_total + k0 + col,
-                 16);
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  load_slab(0, 0);
-  load_b(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int chunk = kt / 9;
-    const int tap = kt - chunk * 9;
-    if (kt + 1 < k_tiles) {
-      load_b(kt + 1, (kt + 1) & 1);
-      if ((kt + 1) % 9 == 0) load_slab(chunk + 1, (chunk + 1) & 1);
-    }
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    // row i of the tap's shifted view is slab row i + halo + dy*W + dx
-    const int8_t* sa = slab0 + (chunk & 1) * slab_rows * kSRow +
-                       (halo + (tap / 3 - 1) * p.w + (tap % 3 - 1)) * kSRow;
-    const int8_t* sb = b0 + (kt & 1) * kBN * kSRow;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      uint32_t af[4][4];
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = warp_m * 64 + mt * 16 + g;
-        const int8_t* p0 = sa + r * kSRow + ks + tig * 4;
-        const int8_t* p1 = p0 + 8 * kSRow;
-        const uint32_t k0 = ((okmask[mt][0] >> tap) & 1u) ? 0xffffffffu : 0u;
-        const uint32_t k1 = ((okmask[mt][1] >> tap) & 1u) ? 0xffffffffu : 0u;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(p0) & k0;
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(p1) & k1;
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(p0 + 16) & k0;
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(p1 + 16) & k1;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r = warp_n * 32 + nt * 8 + g;
-        const int8_t* q0 = sb + r * kSRow + ks + tig * 4;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(q0);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(q0 + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], af[mt], bf[nt]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const long long r0 = m0 + warp_m * 64 + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + warp_n * 32 + nt * 8 + tig * 2;
-      if (r0 < m_total) store2<EPI>(p, r0, col, acc[mt][nt][0], acc[mt][nt][1]);
-      if (r0 + 8 < m_total)
-        store2<EPI>(p, r0 + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
-}
-
-template <int EPI>
-cudaError_t launch_bitshift(const ConvArgs& p, cudaStream_t stream) {
-  const int smem = bitshift_smem_bytes(p.w);
-  cudaError_t err = cudaFuncSetAttribute(
-      bitshift_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long m_total = static_cast<long long>(p.nimg) * p.h * p.w;
-  dim3 grid(static_cast<unsigned>((m_total + kBM - 1) / kBM),
-            static_cast<unsigned>(p.cout / kBN));
-  bitshift_kernel<EPI><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-ConvArgs conv_args(const void* x, const void* w, const void* scale, void* out,
-                   int nimg, int h, int w_, int cin, int cout) {
-  ConvArgs p;
-  p.x = static_cast<const int8_t*>(x);
-  p.wt = static_cast<const int8_t*>(w);
-  p.a = static_cast<const float*>(scale);
-  p.out = out;
-  p.nimg = nimg;
-  p.h = h;
-  p.w = w_;
-  p.cin = cin;
-  p.cout = cout;
+static Plan make_plan(int w, int bn, int bk, int box_rows, int boxes,
+                      int stages) {
+  Plan p;
+  p.halo = w + 1;
+  p.box_rows = box_rows;
+  p.boxes = boxes;
+  p.stages = stages;
+  p.slab_bytes = (boxes * box_rows * bk + 1023) / 1024 * 1024;
+  p.b_off = 2 * p.slab_bytes;
+  p.epi_off = p.b_off + stages * bn * bk;
+  p.bar_off = p.epi_off + kEpiBytes;
+  p.smem = p.bar_off + 8 * (2 * stages + 4) + 1024;  // + align
   return p;
 }
 
-}  // namespace k4
+// Spin on the barrier's phase `parity` like wg::mbar_wait, but end the
+// launch with an error (trap) after about two seconds: a fault in the two
+// rings' bookkeeping then fails the call instead of hanging the card.
+__device__ __forceinline__ void wait_bar(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t t0 = 0;
+  for (int i = 0;; ++i) {
+    asm volatile(
+        "{\n.reg .pred P;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (i == 0) t0 = now;
+    if (now - t0 > 2000000000ull) __trap();
+  }
+}
+
+// The s8 A fragment of 16 rows x 32 bytes from shared memory: lanes 8j to
+// 8j + 7 give the row addresses of b16 matrix j (rows 0-7 / 8-15, bytes
+// 0-15 / 16-31), and register j of lane l receives row l / 4 (+ 8), bytes
+// 4 (l % 4) .. + 3 (+ 16) of it, the register-A layout of wgmma k32 s8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// wgmma with A from registers (four .b32 of s8 a thread) and B by
+// descriptor. The registers must be written before a wgmma.fence that
+// precedes this instruction, and not be written again until a
+// wgmma.wait_group has retired it.
+__device__ __forceinline__ void wgmma_rs_n128(int* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(int* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(int* d, const uint32_t* a,
+                                         uint64_t b) {
+  static_assert(BN == 128 || BN == 256, "wgmma width");
+  if constexpr (BN == 256) {
+    wgmma_rs_n256(d, a, b);
+  } else {
+    wgmma_rs_n128(d, a, b);
+  }
+}
+
+// The producer issues a pair's next slab at this tap of the pair's B
+// loads (or earlier, with fewer stages): late enough that the consumers
+// have released that buffer, early enough that it lands before their
+// next pair starts.
+constexpr int kSlabTap = 6;
+
+// grid: min(tiles, SMs) persistent blocks of wg::kThreads; dynamic shared
+// memory p.smem. A tile is BM flat output pixels (NHW order, crossing
+// image rows and images) x BN channels, its K loop chunks of BK input
+// channels outer and the nine taps inner. Per (tile, chunk) the producer
+// thread loads one slab, the flat rows [m0 - (W + 1), m0 + BM + W + 1) of
+// the chunk's channels, by 2-D TMA boxes (rows outside [0, M) zero-
+// filled), into one of two slab buffers, and each tap's (BN x BK) weight
+// tile into the B ring; the slabs and the ring have barriers and phases of
+// their own. Consumer warpgroup wg takes the tile's rows wg * BM / 2 ..,
+// in m64 blocks; for each tap and k32 step each warp reads its 16 rows'
+// A fragment with one ldmatrix.x4 at slab row (W + 1) + dy * W + dx + i,
+// zeroes the registers of rows whose tap leaves the image or the tensor
+// and runs wgmma m64nBNk32 with A from registers. The fragments are double
+// buffered: a step's ldmatrix runs while the step before is in the tensor
+// cores, and wait_group 1 after each step retires the one whose registers
+// the next step overwrites.
+template <int BM, int BN, int BK, bool F32>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    bitshift_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w, const Shape s,
+                    const Plan p,
+                    const typename wg::ScaleEpi<F32>::Params ep) {
+  constexpr int MT = BM / 128;
+  constexpr int KS = BK / 32;
+  constexpr int kBBytes = BN * BK;
+  static_assert(KS % 2 == 0, "a tap's k32 steps alternate the A buffers");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms aligned
+  const uint32_t sb = base + p.b_off;
+  const uint32_t full = base + p.bar_off;            // p.stages barriers
+  const uint32_t empty = full + 8 * p.stages;        // p.stages barriers
+  const uint32_t slab_full = empty + 8 * p.stages;   // 2 barriers
+  const uint32_t slab_empty = slab_full + 16;        // 2 barriers
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      wg::mbar_init(full + 8 * i, 1);   // the producer's expect_tx arrival
+      wg::mbar_init(empty + 8 * i, 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      wg::mbar_init(slab_full + 8 * i, 1);
+      wg::mbar_init(slab_empty + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int total = s.tiles_m * s.tiles_n;
+  const int chunks = s.cin / BK;
+
+  if (tid >= wg::kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == wg::kConsumers) {
+      // The block's walk is a sequence of (tile, chunk) pairs; pair i
+      // uses slab buffer i % 2 for the (i / 2)-th time.
+      const int pairs = (total - blockIdx.x + gridDim.x - 1) / gridDim.x *
+                        chunks;
+      const int slab_tap = p.stages < kSlabTap ? p.stages : kSlabTap;
+      auto load_slab = [&](int i) {
+        const Tile tile = wg::decode(s, blockIdx.x + i / chunks * gridDim.x);
+        const int buf = i & 1;
+        const uint32_t bar = slab_full + 8 * buf;
+        wait_bar(slab_empty + 8 * buf, ((i >> 1) & 1) ^ 1);
+        wg::mbar_expect_tx(bar, p.boxes * p.box_rows * BK);
+        for (int j = 0; j < p.boxes; ++j)
+          wg::tma_load_2d(base + buf * p.slab_bytes + j * p.box_rows * BK,
+                          &map_x, bar, i % chunks * BK,
+                          tile.x0 - p.halo + j * p.box_rows);
+      };
+      int stage = 0;
+      uint32_t phase = 0;
+      load_slab(0);
+      for (int i = 0; i < pairs; ++i) {
+        const Tile tile = wg::decode(s, blockIdx.x + i / chunks * gridDim.x);
+        const int k0 = i % chunks * BK;
+        for (int tap = 0; tap < 9; ++tap) {
+          if (tap == slab_tap && i + 1 < pairs) load_slab(i + 1);
+          wait_bar(empty + 8 * stage, phase ^ 1);
+          const uint32_t bar = full + 8 * stage;
+          wg::mbar_expect_tx(bar, kBBytes);
+          wg::tma_load_2d(sb + stage * kBBytes, &map_w, bar,
+                          tap * s.cin + k0, tile.nt * BN);
+          if (++stage == p.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wgi = tid >> 7;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  // this warp's first tile row (of m64 block 0), and the row in its 16
+  // and the 16-byte half of a k32 step whose address this lane gives
+  const int row0 = wgi * MT * 64 + (warp & 3) * 16;
+  const int lrow = (lane & 7) + (lane & 8);
+  const int lhi = lane >> 4;
+  int stage = 0;
+  uint32_t phase = 0;
+  int i = 0;  // (tile, chunk) pairs consumed
+  int acc[MT][BN / 2];
+  uint32_t a[2][MT][4];
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const Tile tile = wg::decode(s, t);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) acc[mt][j] = 0;
+    wg::fence_acc<MT * BN / 2>(&acc[0][0]);
+    // bit k of ok[mt][hf]: tap k of fragment row row0 + mt * 64 + g + 8 hf
+    // lies inside its image (none for a row past the tensor)
+    uint32_t ok[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = tile.x0 + row0 + mt * 64 + g + 8 * hf;
+        uint32_t bits = 0;
+        if (m < s.m_total) {
+          const int x = m % s.w;
+          const int y = m / s.w % s.h;
+#pragma unroll
+          for (int k = 0; k < 9; ++k) {
+            const int yy = y + k / 3 - 1, xx = x + k % 3 - 1;
+            bits |= static_cast<uint32_t>(yy >= 0 && yy < s.h && xx >= 0 &&
+                                          xx < s.w)
+                    << k;
+          }
+        }
+        ok[mt][hf] = bits;
+      }
+    bool first = true;
+    int prev = 0;
+    for (int c = 0; c < chunks; ++c, ++i) {
+      const int buf = i & 1;
+      wait_bar(slab_full + 8 * buf, (i >> 1) & 1);
+      const uint32_t slab = base + buf * p.slab_bytes;
+      for (int tap = 0; tap < 9; ++tap) {
+        // this lane's slab row at the tap's offset, and the swizzle of its
+        // 16-byte chunks (128-byte: chunk ^ row % 8; 64-byte: chunk ^
+        // (row / 2) % 4), the same for every m64 block (64 rows on)
+        const int r = p.halo + (tap / 3 - 1) * s.w + (tap % 3 - 1) + row0 +
+                      lrow;
+        const uint32_t ra = slab + r * BK;
+        const int sw = BK == 128 ? (r & 7) : ((r >> 1) & 3);
+        uint32_t mk[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            mk[mt][hf] = 0u - ((ok[mt][hf] >> tap) & 1u);
+        wait_bar(full + 8 * stage, phase);
+        const uint32_t bt = sb + stage * kBBytes;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t(&f)[MT][4] = a[ks & 1];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            ldmatrix_x4(f[mt], ra + mt * 64 * BK +
+                                   (static_cast<uint32_t>((2 * ks + lhi) ^ sw)
+                                    << 4));
+            f[mt][0] &= mk[mt][0];
+            f[mt][1] &= mk[mt][1];
+            f[mt][2] &= mk[mt][0];
+            f[mt][3] &= mk[mt][1];
+          }
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            wgmma_rs<BN>(acc[mt], f[mt], wg::desc_sw<BK>(bt + ks * 32));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          // retires the step before: its A buffer is the next step's, and
+          // at ks = 0 its B tile was the tap before's
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          if (ks == 0 && !first && lane == 0)
+            wg::mbar_arrive(empty + 8 * prev);
+        }
+        first = false;
+        prev = stage;
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      // every ldmatrix of the slab has delivered its registers to an
+      // issued wgmma, so the slab is free
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(slab_empty + 8 * buf);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wg::fence_acc<MT * BN / 2>(&acc[0][0]);
+    if (lane == 0) wg::mbar_arrive(empty + 8 * prev);
+    wg::ScaleEpi<F32>::template tile<BM, BN>(
+        ep, s, tile, acc, smem_raw + (base - raw) + p.epi_off, tid);
+  }
+}
+
+// The flat activation as a 2-D map (Cin, M) read in boxes of (BK,
+// box_rows) and the packed weight as K1's (9*Cin, Cout) map read in boxes
+// of (BK, BN), both in the BK-byte swizzle; tiles of BM flat pixels.
+template <int BM, int BN, int BK, bool F32>
+static cudaError_t launch(const void* x, const void* wt, const float* scale,
+                          void* out, int nimg, int h, int w, int cin,
+                          int cout, int box_rows, int boxes, int stages,
+                          cudaStream_t stream) {
+  Shape s = wg::base_shape(nimg, h, w, cin, cout, 9);
+  s.im2col = 1;  // wg::out_row: tile row r is the flat pixel x0 + r
+  s.bw = BM;     // decode: tile t's first pixel x0 = (t / tiles_n) * BM
+  s.bh = 1;
+  s.bn = 1;
+  s.step_y = 1;
+  s.tiles_x = (s.m_total + BM - 1) / BM;
+  s.tiles_y = 1;
+  s.tiles_m = s.tiles_x;
+  s.tiles_n = cout / BN;
+  s.k_tiles = 9 * cin / BK;
+  s.a_bytes = 0;
+  const Plan p = make_plan(w, BN, BK, box_rows, boxes, stages);
+  if (box_rows % 8 != 0 || box_rows < 8 || box_rows > 256 || boxes < 1 ||
+      boxes > 2 || boxes * box_rows < BM + 2 * (w + 1) || stages < 3 ||
+      p.smem > wg::kSmemMax)
+    return cudaErrorInvalidValue;
+  wg::EncodeTiled enc = wg::encode_tiled();
+  if (enc == nullptr) return cudaErrorSymbolNotFound;
+  wg::Maps maps;
+  const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(cin),
+                              static_cast<cuuint64_t>(s.m_total)};
+  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(cin)};
+  const cuuint32_t xbox[2] = {BK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t ones[2] = {1, 1};
+  if (enc(&maps.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(x),
+          xdim, xstride, xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          wg::swizzle<BK>(), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const cuuint64_t wdim[2] = {static_cast<cuuint64_t>(9) * cin,
+                              static_cast<cuuint64_t>(cout)};
+  const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(9) * cin};
+  const cuuint32_t wbox[2] = {BK, BN};
+  if (enc(&maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(wt),
+          wdim, wstride, wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          wg::swizzle<BK>(), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // the largest dynamic shared memory a block may take, raised once per
+  // instance (`static`: see wgmma_s8.cuh's encode_tiled)
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bitshift_kernel<BM, BN, BK, F32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemMax);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const int total = s.tiles_m * s.tiles_n;
+  const int grid = total < wg::num_sms() ? total : wg::num_sms();
+  bitshift_kernel<BM, BN, BK, F32><<<grid, wg::kThreads, p.smem, stream>>>(
+      maps.x, maps.w, s, p, {scale, out});
+  return cudaGetLastError();
+}
+
+// K1's tiles: 128 x 256 where Cout allows, else 256 x 128 (`bm`, the
+// caller's plan); K chunks of 128 channels where Cin allows, else 64.
+template <bool F32>
+static cudaError_t dispatch(const void* x, const void* wt, const float* sc,
+                            void* out, int nimg, int h, int w, int cin,
+                            int cout, int bm, int box_rows, int boxes,
+                            int stages, cudaStream_t st) {
+  if (bm == 128) {
+    if (cout % 256 != 0) return cudaErrorInvalidValue;
+    return cin % 128 == 0
+               ? launch<128, 256, 128, F32>(x, wt, sc, out, nimg, h, w, cin,
+                                            cout, box_rows, boxes, stages, st)
+               : launch<128, 256, 64, F32>(x, wt, sc, out, nimg, h, w, cin,
+                                           cout, box_rows, boxes, stages, st);
+  }
+  if (bm != 256) return cudaErrorInvalidValue;
+  return cin % 128 == 0
+             ? launch<256, 128, 128, F32>(x, wt, sc, out, nimg, h, w, cin,
+                                          cout, box_rows, boxes, stages, st)
+             : launch<256, 128, 64, F32>(x, wt, sc, out, nimg, h, w, cin,
+                                         cout, box_rows, boxes, stages, st);
+}
+
+}  // namespace bitshift
 }  // namespace reid
 
-extern "C" int reid_conv3x3_s8_bitshift(const void* x, const void* w,
+extern "C" int reid_conv3x3_s8_bitshift(const void* x, const void* wt,
                                         const void* scale, void* out, int nimg,
                                         int h, int w_, int cin, int cout,
-                                        int out_f32, void* stream) {
-  using namespace reid::k4;
-  const ConvArgs p = conv_args(x, w, scale, out, nimg, h, w_, cin, cout);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(out_f32 ? launch_bitshift<kScaleF32>(p, s)
-                                  : launch_bitshift<kScaleBf16>(p, s));
+                                        int bm, int box_rows, int boxes,
+                                        int stages, int out_f32,
+                                        void* stream) {
+  using namespace reid::bitshift;
+  if (nimg == 0) return 0;
+  if (cin % 64 != 0 || cout % 128 != 0 || nimg < 0 || h <= 0 || w_ <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* sc = static_cast<const float*>(scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      out_f32 ? dispatch<true>(x, wt, sc, out, nimg, h, w_, cin, cout, bm,
+                               box_rows, boxes, stages, st)
+              : dispatch<false>(x, wt, sc, out, nimg, h, w_, cin, cout, bm,
+                                box_rows, boxes, stages, st));
 }
 
 // wn (9*Cout, Cin) tap-major along N, as pack_ncat_weight gives it; the A

@@ -331,34 +331,63 @@ def conv3x3_s8_dma(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-# shared memory a block of the bitshift kernel may take (H100)
-_MAX_SMEM = 232448
+# dynamic shared memory a block may take (H100), and K4's epilogue staging
+# (wg::ScaleEpi's in f32, taken for both outputs): 8 warps x 16 rows x
+# (64 f32 + 32 bytes of padding)
+SMEM_MAX = 232448
+_EPI_BYTES = 8 * 16 * (64 * 4 + 32)
 
 
-def bitshift_smem_bytes(w: int) -> int:
-    """Dynamic shared memory of a bitshift block: two slabs of
-    128 + 2*(W+1) rows and two B tiles of 128 rows, 80 bytes a row."""
-    return (2 * (128 + 2 * (w + 1)) + 2 * 128) * 80
+def bitshift_plan(b: int, h: int, w: int, cin: int, cout: int) -> dict:
+    """K4's tiles and shared memory on the card: K1's tiles of bm flat
+    output pixels x bn channels (128 x 256 where Cout % 256 == 0, else
+    256 x 128) and K chunks of bk channels (128 where Cin allows, else
+    64). A slab holds a tile's rows and W + 1 rows on each side,
+    `slab_rows`, loaded as `boxes` TMA boxes of `box_rows` (a multiple of
+    8, at most 256); two slabs, then as many B stages of (bn x bk) as fit
+    (at most 6). Raises ValueError where a row is too wide for two boxes
+    or for three B stages beside the slabs."""
+    bk = 128 if cin % 128 == 0 else 64
+    bm, bn = (128, 256) if cout % 256 == 0 else (256, 128)
+    slab_rows = bm + 2 * (w + 1)
+    boxes = 1 if slab_rows <= 256 else 2
+    per_box = -(-slab_rows // boxes)
+    box_rows = -(-per_box // 8) * 8
+    if box_rows > 256:
+        raise ValueError(f"{BITSHIFT}: W = {w} makes a slab of {slab_rows} "
+                         "rows, more than two TMA boxes of 256")
+    slab_bytes = -(-boxes * box_rows * bk // 1024) * 1024
+    # the ring's stages, each with its two barriers, beside two slabs, the
+    # staging, the four slab barriers and the 1024 bytes of alignment
+    free = SMEM_MAX - 1024 - _EPI_BYTES - 2 * slab_bytes - 4 * 8
+    stages = min(6, free // (bn * bk + 16))
+    if stages < 3:
+        raise ValueError(f"{BITSHIFT}: W = {w} leaves room for {stages} B "
+                         "stages beside the slabs, fewer than 3")
+    return dict(bm=bm, bn=bn, bk=bk, slab_rows=slab_rows, boxes=boxes,
+                box_rows=box_rows, stages=stages,
+                tiles_m=-(-b * h * w // bm))
 
 
 def conv3x3_s8_bitshift(x: torch.Tensor, wt: torch.Tensor,
                         scale: torch.Tensor, out_dtype=torch.bfloat16
                         ) -> torch.Tensor:
-    """`conv3x3_s8`'s contract: per output tile and 64-channel chunk the
-    rows and their halo are staged in shared memory once, and all nine
-    taps read their operands from that slab."""
+    """`conv3x3_s8`'s contract: per tile of flat output pixels and chunk
+    of input channels, the tile's rows and their halo are loaded into
+    shared memory once, and all nine taps read their operands from that
+    slab at the tap's row offset, masked in registers (`bitshift_plan`).
+    Raises ValueError where W is too wide for the slab."""
     if x.device.type == "cpu":
         return conv3x3_s8_bitshift_plain(x, wt, scale, out_dtype)
     b, h, w, cin = x.shape
     cout = wt.shape[0]
     _check(BITSHIFT, x, wt, scale, out_dtype, cout, (cout, 9 * cin))
-    if bitshift_smem_bytes(w) > _MAX_SMEM:
-        raise ValueError(f"{BITSHIFT}: W = {w} needs more shared memory "
-                         "than a block has")
+    plan = bitshift_plan(b, h, w, cin, cout)
     out = torch.empty((b, h, w, cout), dtype=out_dtype, device=x.device)
     _launch(BITSHIFT, x, out, _lib.ptr(x), _lib.ptr(wt), _lib.ptr(scale),
-            _lib.ptr(out), b, h, w, cin, cout,
-            int(out_dtype == torch.float32), _lib.stream_of(x))
+            _lib.ptr(out), b, h, w, cin, cout, plan["bm"], plan["box_rows"],
+            plan["boxes"], plan["stages"], int(out_dtype == torch.float32),
+            _lib.stream_of(x))
     return out
 
 

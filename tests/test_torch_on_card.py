@@ -192,6 +192,19 @@ def test_conv3x3_s8_ncat_rejects_a_row_too_wide(cuda):
         tq.conv3x3_s8_ncat(x, tq.pack_ncat_weight(wt), s)
 
 
+def test_conv3x3_s8_bitshift_rejects_a_row_too_wide(cuda):
+    """A 128-pixel row makes a slab of 258 + 256 rows, more than K4's two
+    TMA boxes of 256 rows; at Cout = 256 a 120-pixel row leaves room for
+    only two B stages beside the slabs."""
+    for w, cout in ((128, 128), (120, 256)):
+        x, wt, s = conv_inputs(np.random.default_rng(4), 1, 2, w, 128, cout,
+                               cuda)
+        reset_launch_counts()
+        with pytest.raises(ValueError):
+            tq.conv3x3_s8_bitshift(x, wt, s)
+        assert launch_counts() == {}
+
+
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_conv3x3_s8_variants_reject_what_they_cannot_take(cuda, name):
     x = torch.zeros((1, 4, 4, 96), dtype=torch.int8, device=cuda)

@@ -6,9 +6,11 @@ and the rescale is one f32 multiply. Then, at real widths, all three
 against the JAX oracle `conv3x3_s8_reference` in f32 and bf16 (bf16 rounds
 the same f32 values to nearest even); the image-block invariance of the K3
 and K5 plain versions; the ncat weight packing and its channel groups; the
-card's tile plans of K3 and K5 (every output pixel covered once, at small
-shapes and at the trunk's) and a pure-torch emulation of each kernel's tile
-walk, fed by the wrapper's plan, equal to `conv3x3_s8_plain` bit for bit;
+card's tile plans of K3-K5 (every output pixel covered once, at small
+shapes and at the trunk's; K4's slab boxes and B ring within the block's
+shared memory, and a row too wide refused) and a pure-torch emulation of
+each kernel's tile walk, fed by the wrapper's plan, equal to
+`conv3x3_s8_plain` bit for bit;
 the probe's CPU run; and that a CPU tensor launches nothing. The CUDA
 kernels against their plain versions are in test_torch_on_card.py."""
 
@@ -310,4 +312,134 @@ def test_dma_tile_walk_matches_plain(shape):
     xt, wt, st = torch.from_numpy(x), pack_hwio(wq), torch.from_numpy(scale)
     for dt in (torch.float32, torch.bfloat16):
         got = emulate_dma(xt, wt, st, dt)
+        assert torch.equal(got, tq.conv3x3_s8_plain(xt, wt, st, dt))
+
+
+def bitshift_smem(plan):
+    """The shared memory of K4's block for `plan`, laid out as the kernel
+    lays it out: two slabs, the B ring, the epilogue's staging, the
+    barriers and 1024 bytes of alignment."""
+    slab = -(-plan["boxes"] * plan["box_rows"] * plan["bk"] // 1024) * 1024
+    return (2 * slab + plan["stages"] * plan["bn"] * plan["bk"]
+            + tq._EPI_BYTES + 8 * (2 * plan["stages"] + 4) + 1024)
+
+
+@pytest.mark.parametrize("shape", [(5, 9, 7), (3, 20, 16), (2048, 32, 16),
+                                   (512, 8, 4), (3, 5, 7), (2048, 16, 8),
+                                   (1, 4, 42)])
+def test_bitshift_plan_covers_every_pixel_once(shape):
+    """Every output pixel lies in one flat tile; every tap's row of every
+    tile row lies in the slab's loaded rows; the boxes and the ring fit
+    the TMA box and the block's shared memory."""
+    b, h, w = shape
+    for cin, cout in ((64, 128), (128, 256), (256, 512)):
+        plan = tq.bitshift_plan(b, h, w, cin, cout)
+        bm = plan["bm"]
+        assert (bm, plan["bn"]) == ((128, 256) if cout % 256 == 0
+                                    else (256, 128))
+        assert plan["bk"] == (128 if cin % 128 == 0 else 64)
+        hits = torch.zeros(b * h * w, dtype=torch.int64)
+        for mt in range(plan["tiles_m"]):
+            m = mt * bm + torch.arange(bm)
+            hits[m[m < b * h * w]] += 1
+        assert bool((hits == 1).all())
+        assert plan["slab_rows"] == bm + 2 * (w + 1)
+        loaded = plan["boxes"] * plan["box_rows"]
+        assert plan["slab_rows"] <= loaded < plan["slab_rows"] + 8 * \
+            plan["boxes"]
+        rows = [w + 1 + dy * w + dx + i for dy, dx in tq._TAPS
+                for i in (0, bm - 1)]
+        assert 0 <= min(rows) and max(rows) < plan["slab_rows"]
+        assert plan["box_rows"] % 8 == 0 and plan["box_rows"] <= 256
+        assert 3 <= plan["stages"] <= 6
+        assert bitshift_smem(plan) <= tq.SMEM_MAX
+        if plan["stages"] < 6:  # one more stage would not fit
+            assert bitshift_smem(dict(plan, stages=plan["stages"] + 1)) > \
+                tq.SMEM_MAX
+
+
+def test_bitshift_plan_at_the_trunk_shapes():
+    """block21 (32x16 c128): 256 x 128 tiles, a slab of 290 rows in two
+    boxes of 152, six B stages; block31 and the probe's c512 shapes:
+    128 x 256 tiles, one box, four stages."""
+    p21 = tq.bitshift_plan(2048, 32, 16, 128, 128)
+    assert (p21["bm"], p21["bn"], p21["bk"], p21["slab_rows"], p21["boxes"],
+            p21["box_rows"], p21["stages"], p21["tiles_m"]) == \
+        (256, 128, 128, 290, 2, 152, 6, 4096)
+    p31 = tq.bitshift_plan(2048, 16, 8, 256, 256)
+    assert (p31["bm"], p31["bn"], p31["slab_rows"], p31["boxes"],
+            p31["box_rows"], p31["stages"], p31["tiles_m"]) == \
+        (128, 256, 146, 1, 152, 4, 2048)
+    p4 = tq.bitshift_plan(512, 8, 4, 512, 512)
+    assert (p4["boxes"], p4["box_rows"], p4["tiles_m"]) == (1, 144, 128)
+
+
+def test_bitshift_plan_rejects_a_row_too_wide():
+    # 256 + 2 * 129 rows: more than two boxes of 256
+    with pytest.raises(ValueError, match="two TMA boxes"):
+        tq.bitshift_plan(1, 2, 128, 128, 128)
+    # two slabs of 2 x 192 rows leave room for two B stages of 256 x 128
+    with pytest.raises(ValueError, match="fewer than 3"):
+        tq.bitshift_plan(1, 2, 120, 128, 256)
+    # the widest rows that fit
+    assert tq.bitshift_plan(1, 2, 127, 128, 128)["stages"] == 3
+    assert tq.bitshift_plan(1, 2, 119, 128, 256)["stages"] == 3
+
+
+def emulate_bitshift(x, wt, scale, out_dtype):
+    """K4's tile walk on the card, in torch: per tile of bm flat output
+    pixels, N tile and chunk of bk channels, the slab as the plan's boxes
+    load it (flat rows from m0 - (W + 1) on, zero outside [0, M)), and per
+    tap the slab rows (W + 1) + dy * W + dx + i, zeroed where the tap
+    leaves the image of row i, in one product over the chunk's channels."""
+    b, h, w, cin = x.shape
+    cout = wt.shape[0]
+    plan = tq.bitshift_plan(b, h, w, cin, cout)
+    bm, bn, bk = plan["bm"], plan["bn"], plan["bk"]
+    m_total, halo = b * h * w, w + 1
+    loaded = plan["boxes"] * plan["box_rows"]
+    xf = x.reshape(m_total, cin).to(torch.float64)
+    out = torch.zeros((m_total, cout), dtype=out_dtype)
+    written = torch.zeros(m_total, dtype=torch.int64)
+    i = torch.arange(bm)
+    for mt in range(plan["tiles_m"]):
+        m0 = mt * bm
+        rows = m0 - halo + torch.arange(loaded)
+        inside = (rows >= 0) & (rows < m_total)
+        m = m0 + i
+        ok = m < m_total
+        mm = torch.where(ok, m, 0)
+        y, xs = (mm // w) % h, mm % w
+        for nt in range(cout // bn):
+            cols = slice(nt * bn, (nt + 1) * bn)
+            acc = torch.zeros((bm, bn), dtype=torch.float64)
+            for c in range(cin // bk):
+                slab = torch.zeros((loaded, bk), dtype=torch.float64)
+                slab[inside] = xf[rows[inside], c * bk:(c + 1) * bk]
+                for t, (dy, dx) in enumerate(tq._TAPS):
+                    keep = ok & (y + dy >= 0) & (y + dy < h) \
+                        & (xs + dx >= 0) & (xs + dx < w)
+                    a = slab[halo + dy * w + dx + i] * keep[:, None]
+                    k0 = t * cin + c * bk
+                    acc += a @ wt[cols, k0:k0 + bk].to(torch.float64).T
+            out[m[ok], cols] = (acc[ok].to(torch.float32)
+                                * scale[cols]).to(out_dtype)
+        written[m[ok]] += 1
+    assert bool((written == 1).all())
+    return out.reshape(b, h, w, cout)
+
+
+@pytest.mark.parametrize("shape", [
+    (5, 9, 7, 64, 128),     # images smaller than a tile, a ragged last one
+    (3, 8, 4, 64, 256),     # M = 96: one ragged 128-row tile
+    (3, 5, 7, 128, 256),    # 128 x 256 tiles crossing images
+    (2, 20, 16, 128, 128),  # 256-row tiles, the last one half used
+    (1, 32, 16, 128, 128),  # block21's geometry
+    (2, 4, 3, 256, 512),    # two chunks, two N tiles
+    (1, 4, 42, 64, 128)])   # a slab of two boxes of 176 rows
+def test_bitshift_tile_walk_matches_plain(shape):
+    x, wq, scale = inputs(np.random.default_rng(sum(shape)), *shape)
+    xt, wt, st = torch.from_numpy(x), pack_hwio(wq), torch.from_numpy(scale)
+    for dt in (torch.float32, torch.bfloat16):
+        got = emulate_bitshift(xt, wt, st, dt)
         assert torch.equal(got, tq.conv3x3_s8_plain(xt, wt, st, dt))
