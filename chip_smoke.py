@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 5 min
+    python3 chip_smoke.py             # on one card, about 5 min of command
     python3 chip_smoke.py --profile   # the same, tracing the track runs
                                       # and the retrieval run
 
@@ -76,6 +76,30 @@ Phases, one JSON line each:
               (`estimate_affine` on the host) within 1 px of the pan; then
               strongsort --chunk 32 once more without --int8, the default
               bf16 embed (cuDNN), its fps and stage split;
+  4b. track with the built-in detectors, on phase 4's scene, the step
+              path: YOLOv5s with its trunk in int8 (DET_ARGS: --det_size
+              288 512, --conf_thres 0.25, random weights from a generator
+              seeded 1, calibrated on the first 8 frames) over 16 frames:
+              fps, the detector's ms a frame (timed around it, the device
+              synchronised), crop_embed and associate, valid detections a
+              frame, and K1's launches at the detector's sites, zeroed
+              just before the run and read just after (5 at 1x18x32 c128
+              and 2 at 1x9x16 c256 a frame, exactly). Then the detector on
+              the card against the same weights and QuantState on the CPU
+              on 2 frames: equal valid counts and each card box within
+              0.5 px of the CPU's box of the same candidate (the share
+              within 0.02 px, and of output slots holding the same box,
+              reported: the random init scores every cell within ~1e-4 of
+              0.25, so which candidates NMS keeps turns on last bits);
+              K1 at the two sites (exact, timed as in phase 3); one
+              frame's launches and device time (torch.profiler); and
+              `nms_fixed` alone. CenterNetLite (f32, no kernel of ours)
+              over 8 frames: fps and detections a frame;
+  4c. gauntlet `reid_tpu_torch.gauntlet`: its 300-frame distractor scene
+              rendered into a temporary directory, the five methods
+              through `track_main --gt` (--chunk 16, --conf_thres 0.3,
+              --max_dets 64): MOTA, IDF1 and HOTA of each against its
+              CHECK_BANDS, which it must not leave;
   5. embed    the card's int8 embed against the same quantized model on the
               CPU (plain kernel versions), cosine of [feat || logits];
   6. retrieval `reid_tpu_torch.cli.inference` (the body of
@@ -124,6 +148,7 @@ Everything is also written to chiprun_out/chip_smoke.json.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -144,6 +169,17 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 K1_SITES = [("block21/conv2", (32, 16, 128, 128)),
             ("block31/conv2", (16, 8, 256, 256))]
 K2_SITES = ["block22", "block32", "block41", "block42"]
+# the detector in the loop: YOLOv5s with its trunk in int8 at the CLI's
+# default --det_size, one image a call. K1 runs at the seven bottleneck 3x3
+# convs with 128 or 256 channels: five at 18x32 with 128 (l6.m0-m2,
+# l13.m0, l20.m0) and two at 9x16 with 256 (l8.m0, l23.m0)
+DET_ARGS = ["--detector", "yolov5", "--yolo_variant", "yolov5s",
+            "--det_size", "288", "512", "--int8", "--conf_thres", "0.25",
+            "--max_dets", "64", "--num_classes", "751", "--crop_hw", "256",
+            "128"]
+DET_K1_SITES = [("l6/m0/cv2/conv", (18, 32, 128, 128)),
+                ("l8/m0/cv2/conv", (9, 16, 256, 256))]
+DET_K1_PER_FRAME = {(18, 32, 128, 128): 5, (9, 16, 256, 256): 2}
 K1_SOURCE, K1_REPLACES = ("reid_tpu_torch/csrc/qconv.cu",
                           "reid_tpu/ops/qconv.py:116")
 # K3-K5: the other forms of K1's convolution, on the qconv probe's path
@@ -305,6 +341,49 @@ def quantized_trunk(dev, dtype, calib, crops, num_classes=751):
     return qm, seen
 
 
+def k1_row(kind, mod, xq, dtype, name, path):
+    """K1 (`conv3x3_s8`) on `xq`, the int8 input of the quantized conv
+    `mod` at a call site: exactly equal to its plain version, timed beside
+    the plain version and `torch._int_mm` on a ready im2col (20 calls
+    each, and 20 back to back). Returns the kernels-line row (emitted)
+    and the kernel's output."""
+    import torch
+    from reid_tpu_torch.ops import qconv
+    from reid_tpu_torch.utils.quantize import _im2col
+
+    b, h, w, cin = xq.shape
+    cout = mod.mm.wt.shape[0]
+    esize = torch.finfo(dtype).bits // 8
+    args = (xq, mod.mm.wt, mod.scale, dtype)
+    got = qconv.conv3x3_s8(*args)
+    want = qconv.conv3x3_s8_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, want), (name, err)
+    del want
+    cols, _ = _im2col(xq, 3, 1, 1, 9 * cin)
+    wcol = mod.mm.wt.T
+    m = b * h * w
+    ms = time_ms(lambda: qconv.conv3x3_s8(*args))
+    plain_ms = time_ms(lambda: qconv.conv3x3_s8_plain(*args))
+    lib_ms = time_ms(lambda: torch._int_mm(cols, wcol))
+    queued = time_queued_ms(lambda: qconv.conv3x3_s8(*args))
+    lib_queued = time_queued_ms(lambda: torch._int_mm(cols, wcol))
+    del cols
+    bms, by = bound(2 * m * cout * 9 * cin,
+                    m * cin + cout * 9 * cin + 4 * cout + esize * m * cout,
+                    kind)
+    row = dict(name=name, route="cuda", source=K1_SOURCE,
+               replaces=K1_REPLACES, path=path, site=[h, w, cin, cout],
+               batch=b, out_dtype=str(dtype), max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=lib_ms, queued_ms=queued[0], host_ms=queued[1],
+               library_queued_ms=lib_queued[0],
+               library_host_ms=lib_queued[1])
+    emit(f"kernel {name}", **row)
+    return row, got
+
+
 def phase_kernels(kind, dtype, calib, crops, path, suffix="",
                   variants=False):
     """K1 and K2 at each call site of `path`'s quantized trunk (`dtype`
@@ -314,7 +393,7 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
     import torch
     from reid_tpu_torch import qconv_probe
     from reid_tpu_torch.ops import qblock, qconv
-    from reid_tpu_torch.utils.quantize import _im2col, quantize_input
+    from reid_tpu_torch.utils.quantize import quantize_input
 
     qm, seen = quantized_trunk(crops.device, dtype, calib, crops)
     esize = torch.finfo(dtype).bits // 8
@@ -325,35 +404,11 @@ def phase_kernels(kind, dtype, calib, crops, path, suffix="",
             assert mod.route, site
             xq = quantize_input(seen[site], mod.sx).contiguous()
             assert tuple(xq.shape[1:]) == (h, w, cin), xq.shape
-            args = (xq, mod.mm.wt, mod.scale, dtype)
-            got = qconv.conv3x3_s8(*args)
-            want = qconv.conv3x3_s8_plain(*args)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            assert torch.equal(got, want), (site, err)
-            cols, _ = _im2col(xq, 3, 1, 1, 9 * cin)
-            wcol = mod.mm.wt.T
-            m = xq.shape[0] * h * w
-            ms = time_ms(lambda: qconv.conv3x3_s8(*args))
-            plain_ms = time_ms(lambda: qconv.conv3x3_s8_plain(*args))
-            lib_ms = time_ms(lambda: torch._int_mm(cols, wcol))
-            queued = time_queued_ms(lambda: qconv.conv3x3_s8(*args))
-            lib_queued = time_queued_ms(lambda: torch._int_mm(cols, wcol))
-            del cols
-            bms, by = bound(2 * m * cout * 9 * cin,
-                            m * cin + cout * 9 * cin + 4 * cout
-                            + esize * m * cout, kind)
-            rows.append(dict(name=f"conv3x3_s8 {site}{suffix}", route="cuda",
-                             source=K1_SOURCE, replaces=K1_REPLACES,
-                             path=path, site=[h, w, cin, cout],
-                             batch=xq.shape[0], out_dtype=str(dtype),
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                             queued_ms=queued[0], host_ms=queued[1],
-                             library_queued_ms=lib_queued[0],
-                             library_host_ms=lib_queued[1]))
-            emit(f"kernel {rows[-1]['name']}", **rows[-1])
-            del want
+            row, got = k1_row(kind, mod, xq, dtype,
+                              f"conv3x3_s8 {site}{suffix}", path)
+            rows.append(row)
+            bms, by, lib_ms = row["bound_ms"], row["bound_by"], \
+                row["library_ms"]
             wn = qconv.pack_ncat_weight(mod.mm.wt)
             for kernel, plain_fn, vname in (
                     qconv_probe.KERNELS.values() if variants else []):
@@ -1164,6 +1219,225 @@ def phase_embed_retrieval(query):
     emit("embed retrieval", images=16, **res)
 
 
+@contextlib.contextmanager
+def timed_detector(calls):
+    """While active, the CLI's built-in detector is wrapped: each call
+    appends (seconds between device synchronisations, valid
+    detections)."""
+    import torch
+    from reid_tpu_torch import cli
+
+    build = cli.build_detector
+
+    def wrapped(*a, **kw):
+        detect = build(*a, **kw)
+
+        def timed(frame):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = detect(frame)
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0, int(out[2].sum())))
+            return out
+        return timed
+
+    cli.build_detector = wrapped
+    try:
+        yield
+    finally:
+        cli.build_detector = build
+
+
+def frame_boxes(cand, scale, pad):
+    """Candidates (N, 6) cx, cy, w, h in letterbox pixels -> tlwh (N, 4)
+    in frame pixels, as the detector undoes the letterbox."""
+    import torch
+    from reid_tpu_torch.models.yolo import inv_f32
+    tl = cand[:, :2] - 0.5 * cand[:, 2:4]
+    tlwh = torch.cat([tl, cand[:, 2:4]], dim=1)
+    shift = torch.tensor([pad[1], pad[0], 0.0, 0.0], device=cand.device)
+    return ((tlwh - shift) * inv_f32(scale)).cpu().numpy()
+
+
+def phase_detector_card_vs_cpu(argv, frames, kind, launches):
+    """The YOLOv5s int8 detector of `argv` built as the CLI builds it
+    (seed 1, calibrated on the source's first 8 frames), on the card and,
+    with the same weights and QuantState, on the CPU (the plain kernel
+    versions), on `frames`: valid counts equal, and every card box within
+    0.5 px of the CPU's box of the same candidate (anchor cell). The share
+    of boxes within 0.02 px and of output slots that hold the same box are
+    reported, with the head maps' largest difference against their
+    largest value and cosine. Then one frame's device launches and device
+    time (torch.profiler) beside its time, `nms_fixed` alone on the card,
+    and K1 at DET_K1_SITES on the first frame's inputs (exact against its
+    plain version, timed). Returns the K1 rows."""
+    import copy
+
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.models import yolo
+    from reid_tpu_torch.utils.quantize import (QuantState, quantize_input,
+                                               quantized_model)
+
+    args = cli._parser().parse_args(argv)
+    det_hw = tuple(args.det_size)
+    rows, res = [], dict(frames=len(frames))
+    with torch.inference_mode(), cli.full_f32():
+        model, qs = cli.build_yolo_detector(args, "cuda")
+        cpu_model = copy.deepcopy(model).cpu()
+        cpu_qs = QuantState({k: v.cpu() for k, v in qs.kernels.items()},
+                            {k: v.cpu() for k, v in qs.w_scales.items()},
+                            dict(qs.act_scales))
+        kw = dict(max_dets=args.max_dets, conf_thres=args.conf_thres)
+        keep_g, keep_c = {}, {}
+        det_g = yolo.make_yolo_detector_fn(model, det_hw, qstate=qs,
+                                           keep=keep_g, **kw)
+        det_c = yolo.make_yolo_detector_fn(cpu_model, det_hw, qstate=cpu_qs,
+                                           keep=keep_c, **kw)
+        per = []
+        for frame in frames:
+            tg, cg, vg = det_g(frame)
+            tc, cc, vc = det_c(frame)
+            scale, _, pad = yolo.letterbox_geometry(frame.shape[:2], det_hw)
+            cand_g = frame_boxes(keep_g["candidates"][0], scale, pad)
+            cand_c = frame_boxes(keep_c["candidates"][0], scale, pad)
+            # each card box's candidate, and the CPU's box of it
+            errs = []
+            for box in tg[vg]:
+                j = int(np.abs(cand_g - box).max(1).argmin())
+                assert np.abs(cand_g[j] - box).max() < 1e-3, box
+                errs.append(float(np.abs(cand_c[j] - box).max()))
+            errs = np.asarray(errs)
+            same_slot = (vg == vc) & (np.abs(tg - tc).max(1) <= 0.02)
+            heads = []
+            for a, b in zip(keep_g["preds"], keep_c["preds"]):
+                a, b = a.float().cpu().double(), b.float().double()
+                heads.append(dict(
+                    max_err_over_max=((a - b).abs().max()
+                                      / b.abs().max()).item(),
+                    cosine=((a * b).sum() / (a.norm() * b.norm())).item()))
+            per.append(dict(valid_card=int(vg.sum()), valid_cpu=int(vc.sum()),
+                            max_box_err_px=float(errs.max(initial=0.0)),
+                            share_within_0_02px=float(
+                                (errs <= 0.02).mean()) if len(errs) else 1.0,
+                            share_slots_equal=float(same_slot[vg].mean())
+                            if vg.any() else 1.0,
+                            heads=heads))
+        res["per_frame"] = per
+        res["nms_rounds_per_frame"] = keep_g["rounds"] / len(frames)
+        # nms_fixed alone on the card, on the last frame's candidates: each
+        # round ends on a host read of its exit test
+        xywh, sc, cl = yolo.decode_yolo(keep_g["preds"])
+        res["nms_ms"] = time_ms(lambda: yolo.nms_fixed(
+            xywh[0], sc[0], cl[0], conf_thres=args.conf_thres,
+            max_dets=args.max_dets))
+        # K1 at the detector's call sites, on the first frame's inputs
+        net = quantized_model(model, qs)
+        seen = {}
+        hooks = [net.get_submodule(
+            p.replace("/", ".")).register_forward_pre_hook(
+                lambda m, a, p=p: seen.__setitem__(p, a[0]))
+            for p, _ in DET_K1_SITES]
+        fr = torch.as_tensor(frames[0]).cuda()
+        net(yolo.letterbox(fr[None], det_hw))
+        for h in hooks:
+            h.remove()
+        for path, (h, w, cin, cout) in DET_K1_SITES:
+            mod = net.get_submodule(path.replace("/", "."))
+            assert mod.route, path
+            xq = quantize_input(seen[path], mod.sx).contiguous()
+            assert tuple(xq.shape) == (1, h, w, cin), xq.shape
+            row, _ = k1_row(kind, mod, xq, torch.bfloat16,
+                            f"conv3x3_s8 {path} 1x{h}x{w} c{cin}",
+                            "track --detector yolov5 --int8")
+            row["launches"] = launches[(h, w, cin, cout)]
+            rows.append(row)
+        # one frame's time, then its device launches and their summed device
+        # time (torch.profiler; traced last, as a trace slows later calls)
+        res["host_clock_ms_per_frame"] = time_ms(lambda: det_g(frames[0]),
+                                                 reps=5, warm=1)
+        split = launch_split(lambda: det_g(frames[0]))
+        res["launches_per_frame"] = len(split)
+        res["device_ms_per_frame"] = sum(k[1] for k in split)
+    emit("yolov5 card vs cpu", **res)
+    for f in per:
+        assert f["valid_card"] == f["valid_cpu"], per
+        assert f["max_box_err_px"] <= 0.5, per
+    return rows
+
+
+def phase_track_yolo(tmp, kind, n_frames=16):
+    """`track` with the built-in YOLOv5s detector in int8 (DET_ARGS) on
+    phase 4's scene, the step path over `n_frames` frames: fps, per-frame
+    ms of the detector (timed around it, the device synchronised), of
+    crop_embed and associate, valid detections a frame and K1's launches
+    at the detector's sites (DET_K1_PER_FRAME a frame, exactly); then the
+    detector card against CPU on 2 frames. Returns the K1 rows."""
+    from reid_tpu_torch.tracking.sources import iter_frames
+
+    fdir, _ = write_scene(tmp, n_frames)
+    argv = ["--source", fdir, *DET_ARGS, "--save_txt",
+            os.path.join(tmp, "yolo.txt")]
+    calls = []
+    with timed_detector(calls):
+        run = run_track(argv)
+    run.pop("affines")
+    k1 = {s: run["site_launches"].get(f"conv3x3_s8 {list(s)}", 0)
+          for s in DET_K1_PER_FRAME}
+    t = run["timing_ms_per_frame"]
+    emit("track yolov5 int8",
+         detect_ms_per_frame=1e3 * sum(c[0] for c in calls) / len(calls),
+         crop_embed_ms_per_frame=t["crop_embed"],
+         associate_ms_per_frame=t["associate"],
+         valid_detections_per_frame=sum(c[1] for c in calls) / len(calls),
+         k1_detector_launches={str(list(s)): n for s, n in k1.items()},
+         **run)
+    assert len(calls) == n_frames == run["frames"], (len(calls), run)
+    assert all(c[1] > 0 for c in calls), calls
+    for s, per_frame in DET_K1_PER_FRAME.items():
+        assert k1[s] == per_frame * n_frames, (s, k1)
+    frames = [f for i, f in iter_frames(fdir) if i in (1, n_frames // 2 + 1)]
+    return phase_detector_card_vs_cpu(argv, frames, kind, k1)
+
+
+def phase_track_centernet(tmp, n_frames=8):
+    """`track` with the built-in CenterNetLite (f32, no kernel of ours) on
+    phase 4's scene, the step path over `n_frames` frames: fps and valid
+    detections a frame."""
+    fdir, _ = write_scene(tmp, n_frames)
+    calls = []
+    with timed_detector(calls):
+        run = run_track(["--source", fdir, "--detector", "centernet",
+                         "--conf_thres", "0.1", "--max_dets", "64",
+                         "--num_classes", "751", "--crop_hw", "256", "128",
+                         "--save_txt", os.path.join(tmp, "centernet.txt")])
+    run.pop("affines")
+    emit("track centernet", detect_ms_per_frame=1e3 * sum(
+        c[0] for c in calls) / len(calls),
+         valid_detections_per_frame=sum(c[1] for c in calls) / len(calls),
+         **run)
+    assert len(calls) == n_frames == run["frames"], run
+    assert not run["launches"], run["launches"]
+
+
+def phase_gauntlet():
+    """`reid_tpu_torch.gauntlet`: its 300-frame scene rendered into a
+    temporary directory, the five methods through `track_main --gt` on the
+    card; each method's MOTA, IDF1 and HOTA inside its CHECK_BANDS."""
+    from reid_tpu_torch import gauntlet
+
+    t0 = time.perf_counter()
+    results = gauntlet.run(device="cuda")
+    for method, m in results.items():
+        emit(f"gauntlet {method}", MOTA=m["MOTA"], IDF1=m["IDF1"],
+             HOTA=m["HOTA"], IDSW=m["IDSW"], band=gauntlet.CHECK_BANDS[method],
+             seconds=m["seconds"])
+    bad = gauntlet.band_failures(results)
+    emit("gauntlet", methods=list(results), outside_band=bad,
+         seconds=time.perf_counter() - t0)
+    assert not bad, bad
+
+
 def set_launches(rows, sites):
     """Each K1/K2 row's launches at its call site in one run of its path."""
     for row in rows:
@@ -1198,6 +1472,11 @@ def main():
         chunked, _ = phase_track(tmp, 64, 32, 8, args.profile)
     with tempfile.TemporaryDirectory() as tmp:
         phase_gmc(tmp, 64, 32, 8)
+    with tempfile.TemporaryDirectory() as tmp:
+        det_rows = phase_track_yolo(tmp, kind)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_track_centernet(tmp)
+    phase_gauntlet()
     phase_embed()
     # K1/K2 launches at their call sites on the track path; K3-K5 (here and
     # in the probe's rows) and K1's probe rows: the probe path's launches
@@ -1205,7 +1484,7 @@ def main():
     set_launches(track_rows, chunked["site_launches"])
     for row in [r for r in rows if r["path"] == "qconv probe"] + probe_rows:
         row["launches"] = probe_counts[row["name"].split()[0]]
-    rows += probe_rows
+    rows += probe_rows + det_rows
 
     query, gallery, make_s = market_splits()
     keep, counts, _ = phase_retrieval(

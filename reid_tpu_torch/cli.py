@@ -4,25 +4,30 @@ Counterparts of `reid_tpu/cli.py:track_main` and `inference_main` with the
 same flags. Both run on the card; `device="cpu"` runs the same program on
 the CPU with the kernels' plain versions.
 
-  * `track_main`: MOT detections + frames in -> SERes18 embed (bf16, or
-    int8 with `--int8`) -> tracker -> MOT txt. Camera-motion compensation
-    (botsort's default, `--gmc on|off`) estimates each chunk's affines on
-    the device; the step path (`--chunk 1`) estimates them per frame on
-    the host.
+  * `track_main`: a frame directory, video file or webcam index in ->
+    detections (a MOT det file with `--detections`, else the built-in
+    detector: CenterNetLite, or YOLOv5 with `--detector yolov5`, its trunk
+    in int8 under `--int8`) -> SERes18 embed (bf16, or int8 with
+    `--int8`) -> tracker -> MOT txt [+ annotated frames with
+    `--save_vid`] [+ CLEAR/Identity/HOTA against `--gt`]. Camera-motion
+    compensation (botsort's default, `--gmc on|off`) estimates each
+    chunk's affines on the device; the step path (`--chunk 1`, and every
+    run with a built-in detector or `--save_vid`) estimates them per frame
+    on the host.
   * `inference_main`: a Market-style split -> SERes18 embeddings (f32 with
     TTA flip, or the int8 serving embed with `--int8`) -> camera de-bias ->
     k-reciprocal Jaccard re-rank -> DBSCAN + tracklet smoothing -> re-rank
     -> CMC and mAP (`--no-rerank`: dot-product scores). `--ckpt` is the
     `.npz` of the flax variable tree.
 
-Flags that belong to later slices of the port raise an error naming the
-slice: for tracking `--gt` (scoring), `--save_vid` (annotation) and the
-built-in detectors (no `--detections`); for retrieval
-`--artifact` (a serving artifact), `--search_option ivf` and
-`--attributes_mat`. The port's retrieval runs on one device.
+Retrieval flags that belong to later slices of the port raise an error
+naming the slice: `--artifact` (a serving artifact), `--search_option ivf`
+and `--attributes_mat`. The port's retrieval runs on one device.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
+    python -m reid_tpu_torch.cli --source video.mp4 --detector yolov5 \
+        --int8 --save_txt out.txt --save_vid annotated/ --gt gt.txt
     python -m reid_tpu_torch.image_reid_inference --root market1501 \
         --ckpt model.npz
 """
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import time
 from typing import Optional
 
 import numpy as np
@@ -43,29 +49,40 @@ _STD = np.asarray((0.229, 0.224, 0.225), np.float32)
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("track")
     p.add_argument("--source", default="",
-                   help="frame directory (images or .npy dumps)")
+                   help="video file | frame directory (images or .npy "
+                        "dumps) | webcam index")
     p.add_argument("--detections", default="",
-                   help="MOT-format det file (required in this slice)")
+                   help="MOT-format det file; omit to run the built-in "
+                        "detector (--detector) on --source frames")
     p.add_argument("--frames_dir", default="",
                    help="alias for --source <frame directory>")
     p.add_argument("--ckpt", default="",
                    help=".npz of the flax variable tree, '/'-joined keys "
                         "(params/block11/conv1/kernel)")
     p.add_argument("--detector", default="centernet",
-                   choices=["centernet", "yolov5"])
-    p.add_argument("--yolo_variant", default="yolov5s")
-    p.add_argument("--det_ckpt", default="")
-    p.add_argument("--det_torch", default="")
+                   choices=["centernet", "yolov5"],
+                   help="built-in detector family")
+    p.add_argument("--yolo_variant", default="yolov5s",
+                   help="yolov5 width/depth variant (n/s/m/l/x or p)")
+    p.add_argument("--det_ckpt", default="",
+                   help="detector checkpoint: .npz of the flax variable "
+                        "tree")
+    p.add_argument("--det_torch", default="",
+                   help="published yolov5*.pt state_dict (ultralytics "
+                        "names)")
     p.add_argument("--det_size", type=int, nargs=2, default=(288, 512),
-                   metavar=("H", "W"))
-    p.add_argument("--det_base", type=int, default=32)
+                   metavar=("H", "W"), help="detector input resolution")
+    p.add_argument("--det_base", type=int, default=32,
+                   help="CenterNetLite width (must match --det_ckpt)")
     p.add_argument("--backbone", default="seres18")
     p.add_argument("--num_classes", type=int, default=751)
     p.add_argument("--tracking_method", default="strongsort",
                    choices=["strongsort", "deepocsort", "ocsort",
                             "bytetrack", "botsort"])
     p.add_argument("--save_txt", default="out.txt")
-    p.add_argument("--save_vid", default="")
+    p.add_argument("--save_vid", default="",
+                   help="annotated output: .avi/.mp4 file or image "
+                        "directory")
     p.add_argument("--conf_thres", type=float, default=0.5)
     p.add_argument("--max_dets", type=int, default=64)
     p.add_argument("--crop_downsample", type=int, default=1)
@@ -84,24 +101,17 @@ def _parser() -> argparse.ArgumentParser:
                    help="frames per chunk of the chunked path; 1 = the "
                         "per-frame step path")
     p.add_argument("--int8", action="store_true",
-                   help="serve the ReID embed in post-training int8, "
+                   help="serve the ReID embed (and the yolov5 detector "
+                        "trunk, when selected) in post-training int8, "
                         "calibrated on the first 8 source frames")
-    p.add_argument("--gt", default="")
+    p.add_argument("--gt", default="",
+                   help="MOT16 gt.txt (9 columns): score the run with "
+                        "CLEAR/Identity/HOTA after tracking")
     p.add_argument("--benchmark", default="MOT16",
-                   choices=["MOT16", "MOT17", "MOT20"])
+                   choices=["MOT16", "MOT17", "MOT20"],
+                   help="gt scoring benchmark: MOT20 widens the distractor "
+                        "set")
     return p
-
-
-def _later(p: argparse.ArgumentParser, args) -> None:
-    if args.gt:
-        p.error("--gt: MOT scoring (tracking/metrics.py) is ported in a "
-                "later slice")
-    if args.save_vid:
-        p.error("--save_vid: annotated output (tracking/annotate.py) is "
-                "ported in a later slice")
-    if not args.detections:
-        p.error("the built-in detectors are ported in a later slice; pass "
-                "--detections")
 
 
 def calibration_crops(source: str, crop_hw, device) -> torch.Tensor:
@@ -176,16 +186,76 @@ def full_f32():
 
 @torch.inference_mode()
 def track(argv=None, device: Optional[str] = "cuda"):
-    """Track a detection file over a frame directory and write the MOT
-    rows; returns the `TrackingPipeline` with its results and timing."""
+    """Track a source (detections from a file or the built-in detector)
+    and write the MOT rows; returns the `TrackingPipeline` with its
+    results, timing and, under `--gt`, `metrics`."""
     p = _parser()
     args = p.parse_args(argv)
     if not args.source and args.frames_dir:
         args.source = args.frames_dir
-    _later(p, args)
+    if not args.source and not args.detections:
+        p.error("need --source and/or --detections")
     # the crop products and the tracker run in full f32
     with full_f32():
         return _track(args, device)
+
+
+def yolo_calibration_frames(source: str, det_hw) -> np.ndarray:
+    """The first 8 source frames, stacked; `np.random.default_rng(0)`
+    uint8 noise at `det_hw` where the source gives none (or frames of
+    different sizes), as `reid_tpu.cli.track_main` calibrates."""
+    from .tracking.sources import iter_frames
+    try:
+        frames = [fr for _, fr in iter_frames(source, 8)]
+        if not frames:
+            raise ValueError("empty source")
+        return np.stack(frames)
+    except ValueError:
+        return np.random.default_rng(0).integers(
+            0, 255, (8, *det_hw, 3)).astype(np.uint8)
+
+
+def build_yolo_detector(args, device):
+    """The YOLOv5 of a run without `--detections`: bf16, a random init
+    from a generator seeded 1 unless `--det_torch` or `--det_ckpt` gives
+    weights; returns (model, QuantState of its trunk under `--int8`, else
+    None)."""
+    from .models.yolo import build_yolo, load_yolov5_state_dict, quantize_yolo
+
+    det_hw = tuple(args.det_size)
+    model = build_yolo(args.yolo_variant, num_classes=1,
+                       dtype=torch.bfloat16, device=device)
+    if args.det_torch:
+        load_yolov5_state_dict(model, args.det_torch)
+    elif args.det_ckpt:
+        from .utils.flax_bridge import load_flax_variables
+        load_flax_variables(model, args.det_ckpt)
+    qstate = None
+    if args.int8:
+        qstate = quantize_yolo(
+            model, yolo_calibration_frames(args.source, det_hw), det_hw)
+    return model, qstate
+
+
+def build_detector(args, max_dets: int, device):
+    """fn(frame (H,W,3) uint8) -> (tlwh, conf, valid), the built-in
+    detector that `--detector` names."""
+    det_hw = tuple(args.det_size)
+    if args.detector == "yolov5":
+        from .models.yolo import make_yolo_detector_fn
+        model, qstate = build_yolo_detector(args, device)
+        return make_yolo_detector_fn(model, det_hw, max_dets=max_dets,
+                                     conf_thres=args.conf_thres,
+                                     qstate=qstate)
+    from .models.detector import CenterNetLite
+    from .train.detector_train import make_detector_fn
+    model = CenterNetLite(base=args.det_base).init_weights(
+        torch.Generator().manual_seed(1))
+    if args.det_ckpt:
+        from .utils.flax_bridge import load_flax_variables
+        load_flax_variables(model, args.det_ckpt)
+    return make_detector_fn(model.to(device).eval(), det_hw,
+                            max_dets=max_dets)
 
 
 def _track(args, device):
@@ -209,22 +279,36 @@ def _track(args, device):
     pipe = TrackingPipeline(cfg, embed_fn, int(probe.shape[-1]),
                             device=device)
 
-    dets = load_mot_detections(args.detections, cfg.max_dets,
-                               min_conf=args.conf_thres)
+    # detections: a MOT file, or the built-in detector
+    dets = detect = None
+    if args.detections:
+        dets = load_mot_detections(args.detections, cfg.max_dets,
+                                   min_conf=args.conf_thres)
+    else:
+        detect = build_detector(args, cfg.max_dets, device)
+
+    # frame source (video / dir / webcam), or blanks for det-only runs
     if args.source:
-        from .tracking.sources import iter_frames
+        from .tracking.sources import iter_frames, source_fps
         frame_iter = iter_frames(args.source, args.max_frames)
+        vid_fps = source_fps(args.source)
     else:
         n_frames = max(dets) if dets else 0
         if args.max_frames:
             n_frames = min(n_frames, args.max_frames)
         blank = np.zeros((64, 64, 3), np.uint8)
         frame_iter = ((i, blank) for i in range(1, n_frames + 1))
+        vid_fps = 30
+
+    writer = None
+    if args.save_vid:
+        from .tracking.annotate import AnnotatedVideoWriter
+        writer = AnnotatedVideoWriter(args.save_vid, fps=vid_fps)
 
     empty = (np.zeros((cfg.max_dets, 4), np.float32),
              np.zeros(cfg.max_dets, np.float32),
              np.zeros(cfg.max_dets, bool))
-    if args.chunk > 1:
+    if args.chunk > 1 and dets is not None and writer is None:
         items = list(frame_iter)
         f_ids = [i for i, _ in items]
         frames_np = np.stack([f for _, f in items])
@@ -238,18 +322,45 @@ def _track(args, device):
                           chunk=args.chunk, first_frame=f_ids[0],
                           frame_crop_cap=args.frame_crop_cap or None)
     else:
+        if args.chunk > 1:
+            print("--chunk needs --detections (and no --save_vid); "
+                  "falling back to the per-frame path")
+        pipe.timing.setdefault("detect", 0.0)
         for f_idx, frame in frame_iter:
-            tlwh, conf, valid = dets.get(f_idx, empty)
-            pipe.step(f_idx, frame, tlwh, conf, valid)
+            if dets is not None:
+                tlwh, conf, valid = dets.get(f_idx, empty)
+            else:
+                # the detector returns host arrays: the card is done
+                t0 = time.perf_counter()
+                tlwh, conf, valid = detect(frame)
+                dt = time.perf_counter() - t0
+                pipe.timing["detect"] += dt
+                pipe.timing["total"] += dt
+            out = pipe.step(f_idx, frame, tlwh, conf, valid)
+            if writer is not None:
+                writer.write(frame, out["tlwh"], out["ids"], out["valid"])
+    if writer is not None:
+        writer.close()
+        print(f"annotated output -> {args.save_vid}")
     rows = pipe.write(args.save_txt)
     print(f"{rows} rows -> {args.save_txt}; "
           f"timing: {pipe.timing_summary()}")
+    if args.gt:
+        from .tracking.metrics import evaluate_mot16
+        pipe.metrics = evaluate_mot16(args.gt, args.save_txt,
+                                      benchmark=args.benchmark)
+        print("  ".join(f"{k}: {v:.2f}" for k, v in pipe.metrics.items()
+                        if not k.startswith("_")))
     return pipe
 
 
-def track_main(argv=None, device: Optional[str] = "cuda") -> int:
-    """`track`, returning the number of MOT rows written."""
-    return sum(int(np.sum(r["valid"])) for r in track(argv, device).results)
+def track_main(argv=None, device: Optional[str] = "cuda"):
+    """`track`, returning the metrics dict under `--gt`, else the number of
+    MOT rows written."""
+    pipe = track(argv, device)
+    if pipe.metrics is not None:
+        return pipe.metrics
+    return sum(int(np.sum(r["valid"])) for r in pipe.results)
 
 
 def _inference_parser() -> argparse.ArgumentParser:

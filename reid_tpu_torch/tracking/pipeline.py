@@ -334,6 +334,8 @@ class TrackingPipeline:
             frame_crop_cap=cfg.frame_crop_cap,
             embed_in_dtype=cfg.embed_in_dtype)
         self.results: List[dict] = []
+        # the run's MOT scores, where the caller scored it (`--gt`)
+        self.metrics: Optional[Dict[str, float]] = None
         self.timing = {"crop_embed": 0.0, "gmc": 0.0, "associate": 0.0,
                        "total": 0.0}
         self.frames = 0

@@ -5,7 +5,11 @@ flax conv kernels are HWIO and become OIHW, dense kernels (in, out) become
 (out, in); BatchNorm `scale`/`bias` with `batch_stats` `mean`/`var` become
 `weight`/`bias`/`running_mean`/`running_var`, InstanceNorm `scale`/`bias`
 become `weight`/`bias`; `gem/p` and `cam_bias` keep their names. A flax path
-"block11/bn1/IN/scale" names the parameter "block11.bn1.IN.weight".
+"block11/bn1/IN/scale" names the parameter "block11.bn1.IN.weight". The
+same map carries the detectors (`models/yolo.py`, `models/detector.py`),
+whose module names equal the flax ones; a transposed conv's kernel
+(kh, kw, in, out) becomes (in, out, kh, kw) flipped in both spatial axes
+(`models.layers.ConvTranspose2d` says why).
 
 Variables arrive as a nested dict of numpy arrays ({"params": ...,
 "batch_stats": ...}) or as an `.npz` whose keys are the `/`-joined paths
@@ -15,7 +19,7 @@ checkpoint here. A JAX `QuantState` crosses the same way.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -65,14 +69,27 @@ def kernel_to_torch(k: np.ndarray) -> np.ndarray:
     return k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
 
 
-def torch_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+def transposed_kernel_to_torch(k: np.ndarray) -> np.ndarray:
+    """flax ConvTranspose kernel (kh, kw, in, out), transpose_kernel=False
+    -> the (in, out, kh, kw) weight of `conv_transpose2d`, flipped."""
+    return np.ascontiguousarray(
+        np.asarray(k)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def torch_state_dict(variables: Mapping, transposed: Iterable[str] = ()
+                     ) -> Dict[str, torch.Tensor]:
+    """The state_dict of a flax variable tree; `transposed` names the
+    modules ("up3") that are transposed convs."""
+    transposed = set(transposed)
     sd = {}
     for coll in ("params", "batch_stats"):
         for path, v in flatten(variables.get(coll, {})).items():
             *mods, leaf = path
             arr = np.asarray(v, np.float32)
             if leaf == "kernel":
-                arr = kernel_to_torch(arr)
+                arr = (transposed_kernel_to_torch(arr)
+                       if ".".join(mods) in transposed
+                       else kernel_to_torch(arr))
             name = ".".join(mods + [_LEAF.get(leaf, leaf)])
             sd[name] = torch.tensor(arr)
     return sd
@@ -81,9 +98,14 @@ def torch_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 def load_flax_variables(model: torch.nn.Module, variables) -> None:
     """Copy flax variables (a tree, or an `.npz` path) into `model`; every
     parameter and buffer must be covered."""
+    from ..models.layers import ConvTranspose2d
+
     if isinstance(variables, str):
         variables = load_npz(variables)
-    model.load_state_dict(torch_state_dict(variables), strict=True)
+    transposed = [n for n, m in model.named_modules()
+                  if isinstance(m, ConvTranspose2d)]
+    model.load_state_dict(torch_state_dict(variables, transposed),
+                          strict=True)
 
 
 def quant_state_from_flax(qstate, device="cuda") -> QuantState:

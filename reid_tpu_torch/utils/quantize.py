@@ -1,8 +1,9 @@
-"""Post-training int8 quantization of the ReID embed.
+"""Post-training int8 quantization of any module tree of the port (the
+SERes18 embed, the YOLOv5 trunk).
 
 Counterpart of `reid_tpu/utils/quantize.py`. The JAX package calibrates and
 executes through flax method interceptors; here calibration hooks every
-`Conv2d` and `Linear` and execution swaps modules:
+`Conv2d` and `Linear` that `select` accepts and execution swaps modules:
 
   * calibration records each layer's input absmax (forward pre-hooks);
   * weights get per-output-channel symmetric scales, absmax / 127;
@@ -35,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.layers import Conv2d, Linear
-from ..models.seres18 import SEBasicBlock, SERes18IBN, block_names
+from ..models.seres18 import SEBasicBlock
 from ..ops.qblock import QBlockParams, fold_bn, se_basic_block_s8
 from ..ops.qconv import (conv3x3_s8, conv_acc_plain, pack_conv_weight,
                          qconv_applicable, quantize_s8)
@@ -115,7 +116,9 @@ def quantize(model: nn.Module, calib_batches: Sequence[torch.Tensor],
     return quantize_weights(model, calibrate(model, calib_batches, select))
 
 
-def _inv(s: float) -> float:
+def inv_f32(s: float) -> float:
+    """The f32 reciprocal of f32(s): XLA compiles a division by a constant
+    into a multiplication by it."""
     return float(np.float32(1.0) / np.float32(s))
 
 
@@ -123,7 +126,7 @@ def quantize_input(x: torch.Tensor, sx: float) -> torch.Tensor:
     """`_quantized_conv`'s input quantization, clip(round(x / sx)), as the
     compiled JAX program computes it: XLA rewrites the division by the
     constant scale into a multiplication by its f32 reciprocal."""
-    return quantize_s8(x, _inv(sx))
+    return quantize_s8(x, inv_f32(sx))
 
 
 def _pad_to(n: int, m: int) -> int:
@@ -187,7 +190,10 @@ class QConv2d(nn.Module):
     def __init__(self, conv: Conv2d, kq: torch.Tensor, sw: torch.Tensor,
                  sx: float):
         super().__init__()
+        # rounded to the layer's dtype whatever reads it (`keep_f32` is the
+        # float conv's): the compiled JAX program keeps this rounding
         self.dtype = conv.dtype
+        self.bias = conv.bias
         self.k = conv.kernel_size[0]
         self.stride = conv.stride[0]
         self.padding = conv.padding[0]
@@ -202,8 +208,9 @@ class QConv2d(nn.Module):
     def forward(self, x):
         xq = quantize_input(x, self.sx)
         if self.route:
-            return conv3x3_s8(xq, self.mm.wt, self.scale,
-                              out_dtype=self.dtype)
+            out = conv3x3_s8(xq, self.mm.wt, self.scale, out_dtype=self.dtype)
+            return out if self.bias is None else out + self.bias.to(
+                self.dtype)
         if xq.device.type == "cpu":
             acc = conv_acc_plain(xq, self.mm.wt, self.k, self.stride,
                                  self.padding)
@@ -211,7 +218,10 @@ class QConv2d(nn.Module):
             rows, (b, ho, wo) = _im2col(xq, self.k, self.stride,
                                         self.padding, self.mm.wt_pad.shape[1])
             acc = self.mm.acc(rows).reshape(b, ho, wo, -1)
-        return (acc * self.scale).to(self.dtype)
+        out = acc * self.scale
+        if self.bias is not None:
+            out = out + self.bias.to(torch.float32)
+        return out.to(self.dtype)
 
 
 class QLinear(nn.Module):
@@ -286,13 +296,13 @@ def make_qblock_params(block: SEBasicBlock, qstate: QuantState,
         bn = block.down_bn
         ad, cd = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var)
         kw.update(wd=qstate.kernels[path].reshape(cout, cin).contiguous(),
-                  ad=ad * dqd, cd=cd, inv_sxd=_inv(qstate.act_scales[path]))
+                  ad=ad * dqd, cd=cd, inv_sxd=inv_f32(qstate.act_scales[path]))
     se = block.seblock
     p = QBlockParams(
         w1=pack_conv_weight(k1), w2=pack_conv_weight(k2),
         a2=a2 * dq2, c2=c2,
-        inv_sx1=_inv(qstate.act_scales[prefix + "conv1"]),
-        inv_sx2=_inv(qstate.act_scales[prefix + "conv2"]),
+        inv_sx1=inv_f32(qstate.act_scales[prefix + "conv1"]),
+        inv_sx2=inv_f32(qstate.act_scales[prefix + "conv2"]),
         wfc1=se.fc1.weight.T.to(torch.bfloat16).contiguous(),
         wfc2=se.fc2.weight.T.to(torch.bfloat16).contiguous(),
         **kw)
@@ -309,15 +319,25 @@ def _fused(block: SEBasicBlock, qstate: QuantState, prefix: str) -> bool:
     return all(prefix + r in qstate.kernels for r in rels)
 
 
-def quantized_model(model: SERes18IBN, qstate: QuantState) -> nn.Module:
+def _set_submodule(root: nn.Module, path: str, module: nn.Module) -> None:
+    parent_path, _, leaf = path.rpartition("/")
+    parent = root.get_submodule(parent_path.replace("/", ".")) \
+        if parent_path else root
+    setattr(parent, leaf, module)
+
+
+def quantized_model(model: nn.Module, qstate: QuantState) -> nn.Module:
     """A copy of `model` whose calibrated layers execute in int8: fused SE
-    blocks first, then every remaining Conv2d / Linear in `qstate`."""
+    blocks first (SERes18), then every remaining Conv2d / Linear in
+    `qstate`, whatever the tree; layers not in `qstate` keep their
+    precision."""
     qm = copy.deepcopy(model)
-    for name in block_names():
-        block = getattr(qm, name)
-        if _fused(block, qstate, name + "/"):
-            setattr(qm, name, QSEBasicBlock(
-                make_qblock_params(block, qstate, name + "/"), block.ibn,
+    for name, block in list(qm.named_modules()):
+        path = _path(name)
+        if isinstance(block, SEBasicBlock) and _fused(block, qstate,
+                                                      path + "/"):
+            _set_submodule(qm, path, QSEBasicBlock(
+                make_qblock_params(block, qstate, path + "/"), block.ibn,
                 block.conv1.dtype))
     dev = next(model.parameters()).device
     for path, m in list(quantizable(qm)):
@@ -328,8 +348,5 @@ def quantized_model(model: SERes18IBN, qstate: QuantState) -> nn.Module:
         sx = qstate.act_scales[path]
         q = QConv2d(m, kq, sw, sx) if isinstance(m, Conv2d) else QLinear(
             m, kq, sw, sx)
-        parent_path, _, leaf = path.rpartition("/")
-        parent = qm.get_submodule(parent_path.replace("/", ".")) \
-            if parent_path else qm
-        setattr(parent, leaf, q.to(dev))
+        _set_submodule(qm, path, q.to(dev))
     return qm

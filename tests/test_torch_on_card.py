@@ -21,6 +21,12 @@ Tolerances:
   * the fused block in f32 (the retrieval path's f32 trunk): the same
     limits as in bf16, against the plain version in f32.
   * the int8 embed, card against CPU: cosine >= 0.999 per row.
+  * the int8 YOLOv5s detector (random init, seed 1, calibrated on one
+    frame), card against CPU with the same weights and QuantState: the
+    same number of valid boxes, and each card box within 0.5 px of the
+    CPU's box of the same candidate (anchor cell). Output slots are not
+    compared: the random init scores every cell within ~1e-4 of 0.25, so
+    which candidates NMS keeps can turn on a last-bit difference.
   * sqeuclidean (K6): rtol = atol = 1e-4 against the plain version (norms
     plus a cuBLAS f32 matmul with TF32 off): the kernel sums the dot
     products in another order, about 1e-6 relative apart.
@@ -103,13 +109,20 @@ def block_params(rng, cin, cout, down, ibn, dev, mip=16):
                                    (2, 9, 11, 64, 128),
                                    (16, 8, 4, 512, 512),
                                    (4, 16, 8, 256, 256),
-                                   (2, 6, 10, 64, 256)])
+                                   (2, 6, 10, 64, 256),
+                                   (1, 18, 32, 128, 128),
+                                   (1, 9, 16, 256, 256),
+                                   (1, 24, 40, 128, 128),
+                                   (1, 12, 20, 256, 256)])
 def test_conv3x3_s8_matches_plain(cuda, shape):
     """Exact in bf16 and f32, one launch each. The shapes cover a tile of
     four whole images (8x4: 32 pixels an image) with Cout split over two
     N tiles of 256, ragged boxes that leave tile rows unused (5x7, 9x11,
     6x10), every tile form (128 x 256 and 256 x 128, K steps of 64 and 128
-    channels), and one image per tile (16x8)."""
+    channels), one image per tile (16x8), and the YOLOv5s detector's
+    call sites, one image a call: at --det_size 288 512 (18x32 with 128
+    channels, whose last box holds 2 of its 8 rows; 9x16 with 256, 1 of
+    8) and at 384 640 (24x40 and 12x20: box widths of no power of two)."""
     args = conv_inputs(np.random.default_rng(1), *shape, cuda)
     for dt in (torch.float32, torch.bfloat16):
         reset_launch_counts()
@@ -306,6 +319,49 @@ def test_int8_embed_on_card_matches_cpu(cuda):
     assert launch_counts()[tqb.NAME] == 4
     cos = torch.nn.functional.cosine_similarity(e_c, e_g.cpu(), dim=1)
     assert cos.min() >= 0.999, cos
+
+
+def test_yolo_int8_detector_on_card_matches_cpu(cuda):
+    import copy
+
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.models import yolo
+    from reid_tpu_torch.utils.quantize import QuantState
+
+    rng = np.random.default_rng(7)
+    frame = rng.integers(0, 60, (540, 960, 3), np.uint8)
+    for _ in range(20):
+        x, y = rng.integers(0, 900), rng.integers(0, 440)
+        frame[y:y + 100, x:x + 40] = rng.integers(40, 255, 3)
+    det_hw = (288, 512)
+    with torch.inference_mode(), full_f32():
+        model = yolo.build_yolo("yolov5s", dtype=torch.bfloat16,
+                                device=cuda)
+        qs = yolo.quantize_yolo(model, frame[None], det_hw)
+        cpu_qs = QuantState({k: v.cpu() for k, v in qs.kernels.items()},
+                            {k: v.cpu() for k, v in qs.w_scales.items()},
+                            dict(qs.act_scales))
+        keep_g, keep_c = {}, {}
+        reset_launch_counts()
+        tg, _, vg = yolo.make_yolo_detector_fn(
+            model, det_hw, qstate=qs, keep=keep_g)(frame)
+        assert launch_counts()[tq.NAME] == 7
+        tc, _, vc = yolo.make_yolo_detector_fn(
+            copy.deepcopy(model).cpu(), det_hw, qstate=cpu_qs,
+            keep=keep_c)(frame)
+    assert vg.sum() == vc.sum() > 0
+    scale, _, (py, px) = yolo.letterbox_geometry(frame.shape[:2], det_hw)
+
+    def boxes(cand):
+        cand = cand[0].float().cpu().numpy()
+        tl = cand[:, :2] - 0.5 * cand[:, 2:4]
+        return (np.concatenate([tl, cand[:, 2:4]], 1)
+                - [px, py, 0, 0]) * yolo.inv_f32(scale)
+    bg, bc = boxes(keep_g["candidates"]), boxes(keep_c["candidates"])
+    for box in tg[vg]:
+        j = int(np.abs(bg - box).max(1).argmin())
+        assert np.abs(bg[j] - box).max() < 1e-3
+        assert np.abs(bc[j] - box).max() <= 0.5, (box, bc[j])
 
 
 def test_smooth_tracklets_on_card_repeats_and_matches_cpu(cuda):
