@@ -2,9 +2,10 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 5 min of command
-    python3 chip_smoke.py --profile   # the same, tracing the track runs
-                                      # and the retrieval run
+    python3 chip_smoke.py             # on one card, about 6 min of command
+    python3 chip_smoke.py --profile   # the same, tracing the track runs,
+                                      # a chunk of each stream operating
+                                      # point and the retrieval run
 
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
@@ -100,6 +101,26 @@ Phases, one JSON line each:
               through `track_main --gt` (--chunk 16, --conf_thres 0.3,
               --max_dets 64): MOTA, IDF1 and HOTA of each against its
               CHECK_BANDS, which it must not leave;
+  4d. streams multi-stream tracking (`tracking.streams.make_stream_tracker`)
+              with the CLI's int8 embed at the two operating points of
+              STREAM_POINTS, each stream its own seeded scene:
+              multistream8 (8 streams, --chunk 64, 4 chunks, 480x640, 16
+              boxes in 32 slots, 64 track slots: one embed call of 8,192
+              crops a chunk) and mot16_load_multistream8 (8 streams,
+              --chunk 8, 6 chunks, 1080p, 50 boxes in 64 slots, 128 track
+              slots: 3,200 crops),
+              then botsort with GMC at the second on PAN scenes (each
+              stream's device affines within 1 px of the pan). Each chunk's
+              seconds, stage split (crop_embed, gmc, associate) and host
+              reads; aggregate fps (all frames of the chunks after the
+              first over their seconds) beside one stream's fps alone,
+              counted alike; peak device memory;
+              K1/K2 launches zeroed just before and read just after (2 and
+              4 a chunk: one embed call for all streams); every stream held
+              against its own single-stream run (ids and valid identical,
+              tlwh within 1e-4; bit-equality reported). Then K1 and K2 at
+              the stream batch (B = 8,192) against their plain versions,
+              with the limits of phase 3, and timed;
   5. embed    the card's int8 embed against the same quantized model on the
               CPU (plain kernel versions), cosine of [feat || logits];
   6. retrieval `reid_tpu_torch.cli.inference` (the body of
@@ -142,7 +163,24 @@ Phases, one JSON line each:
               the top-20 sets equal on >= 99.9% of rows (near-ties: see
               `phase_retrieval_cpu`); then the f32 and the int8 TTA embed,
               card against CPU, on 16 images: cosine >= 0.99999 and
-              >= 0.999.
+              >= 0.999;
+ 11. ivf      IVF search (`ops/ivf.py`) on phase 6's de-biased unit
+              features (N = 23,100) with `choose_search`'s plan for
+              --search_option ivf (nlist 512, nprobe 64): seconds of
+              k-means, bucketing and `ivf_topk`, recall@20 against the
+              exact top-20 (K6), CMC/mAP of the post-embed half with the
+              IVF plan beside phase 6's dense (K6/K7 launches counted
+              around it); card against CPU on phase 10's 1,024 features
+              with one k-means init: bucket ids equal, distances within
+              1e-5, differing rankings (near-ties) reported;
+ 12. artifact the f32 and the int8 serving artifact (torch.export, K1
+              and K2 as custom ops) of SERes18 at 256x128 with a dynamic
+              batch: export seconds and file sizes; loaded, at B = 1, 3
+              and 64, bit-equal to serving in process, K1/K2 launches
+              counted (2 and 4 a call for int8); then `inference
+              --artifact` (f32, equal to the in-process model) and the
+              int8 artifact with `--attributes_mat` (a .mat written here)
+              on an in-memory split of 64 queries and 256 gallery images.
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -224,6 +262,16 @@ K7_REPLACES = "reid_tpu/ops/distance.py:149"
 DIST_SOURCE = "reid_tpu_torch/csrc/distance.cu"
 # the retrieval operating point: Market-1501's test split
 N_QUERY, N_GALLERY, N_IDS, N_CAMS, N_CLASSES = 3368, 19732, 750, 6, 751
+# the multi-stream operating points (bench.py:315-386, :390, :908-911):
+# S streams, `n_real` boxes a frame in `max_dets` slots; each stream's crop
+# budget is chunk x n_real, so a chunk embeds S x chunk x n_real crops;
+# `n_chunks` chunks a run, all but the first timed (a few seconds)
+STREAM_POINTS = {
+    "multistream8": dict(streams=8, chunk=64, hw=(480, 640), n_real=16,
+                         max_dets=32, max_tracks=64, n_chunks=4),
+    "mot16_load_multistream8": dict(streams=8, chunk=8, hw=(1080, 1920),
+                                    n_real=50, max_dets=64,
+                                    max_tracks=128, n_chunks=6)}
 
 RESULTS = {}
 
@@ -523,13 +571,12 @@ def textured_background(rng, h, w, grain=2):
     return up.clamp(0, 255).to(torch.uint8).numpy()
 
 
-def write_scene(root, n_frames, n_real=50, hw=(1080, 1920), seed=0,
-                pan=None):
-    """MOT16-load scene as .npy frames plus det.txt: 50 boxes of person
-    aspect moving across a noisy background, each painted its own colour.
-    With `pan` = (px, py) the background is a fixed texture that the
-    camera pans across, so its content and the boxes move by (px, py) px
-    per frame."""
+def scene(n_frames, n_real=50, hw=(1080, 1920), seed=0, pan=None):
+    """MOT16-load scene: frames (T, H, W, 3) uint8 and boxes (T, n_real, 4)
+    tlwh of `n_real` boxes of person aspect moving across a noisy
+    background, each painted its own colour. With `pan` = (px, py) the
+    background is a fixed texture that the camera pans across, so its
+    content and the boxes move by (px, py) px per frame."""
     rng = np.random.default_rng(seed)
     h, w = hw
     px, py = pan or (0, 0)
@@ -545,9 +592,8 @@ def write_scene(root, n_frames, n_real=50, hw=(1080, 1920), seed=0,
         bg = textured_background(rng, h + mh, w + mw)
         # frame t shows the window at (oy - py*t, ox - px*t)
         oy, ox = (mh if py > 0 else 0), (mw if px > 0 else 0)
-    fdir = os.path.join(root, "frames")
-    os.makedirs(fdir)
-    lines = []
+    frames = np.empty((n_frames, h, w, 3), np.uint8)
+    boxes = np.empty((n_frames, n_real, 4))
     for t in range(n_frames):
         if pan:
             y_t, x_t = oy - py * t, ox - px * t
@@ -560,9 +606,22 @@ def write_scene(root, n_frames, n_real=50, hw=(1080, 1920), seed=0,
             y = float(np.clip(y0[j] + py * t, 0, h - heights[j] - 1))
             frame[int(y):int(y + heights[j]), int(x):int(x + widths[j])] = \
                 colors[j]
-            lines.append(f"{t + 1},-1,{x:.2f},{y:.2f},{widths[j]:.2f},"
-                         f"{heights[j]:.2f},0.9")
-        np.save(os.path.join(fdir, f"{t + 1:06d}.npy"), frame)
+            boxes[t, j] = (x, y, widths[j], heights[j])
+        frames[t] = frame
+    return frames, boxes
+
+
+def write_scene(root, n_frames, n_real=50, hw=(1080, 1920), seed=0,
+                pan=None):
+    """`scene` as .npy frames plus det.txt (confidence 0.9)."""
+    frames, boxes = scene(n_frames, n_real, hw, seed, pan)
+    fdir = os.path.join(root, "frames")
+    os.makedirs(fdir)
+    lines = []
+    for t in range(n_frames):
+        for x, y, w, h in boxes[t]:
+            lines.append(f"{t + 1},-1,{x:.2f},{y:.2f},{w:.2f},{h:.2f},0.9")
+        np.save(os.path.join(fdir, f"{t + 1:06d}.npy"), frames[t])
     det = os.path.join(root, "det.txt")
     with open(det, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -1438,6 +1497,447 @@ def phase_gauntlet():
     assert not bad, bad
 
 
+def stream_data(point, dev, pan=None):
+    """The inputs of an operating point of `STREAM_POINTS`: each stream its
+    own scene (`scene`, seed 100 + s), `n_real` boxes of confidence 0.9 in
+    `max_dets` slots, over `n_chunks` chunks."""
+    import torch
+    n_s, t = point["streams"], point["chunk"] * point["n_chunks"]
+    h, w = point["hw"]
+    n, d = point["n_real"], point["max_dets"]
+    frames = torch.empty((n_s, t, h, w, 3), dtype=torch.uint8, device=dev)
+    tlwh = torch.zeros((n_s, t, d, 4), device=dev)
+    for s in range(n_s):
+        fr, boxes = scene(t, n, (h, w), seed=100 + s, pan=pan)
+        frames[s] = torch.from_numpy(fr).to(dev)
+        tlwh[s, :, :n] = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    conf = torch.zeros((n_s, t, d), device=dev)
+    conf[:, :, :n] = 0.9
+    return frames, tlwh, conf, conf > 0
+
+
+def stream_cfg(point, method="strongsort"):
+    """bench.py:315-386's tracker: n_init 2, the per-frame crop cap at the
+    boxes a frame, 256x128 crops."""
+    from reid_tpu_torch.tracking.methods import method_config
+    return method_config(method, max_tracks=point["max_tracks"],
+                         max_dets=point["max_dets"], n_init=2,
+                         crop_hw=(256, 128), frame_crop_cap=point["n_real"])
+
+
+def run_streams(name, point, embed, data, method="strongsort",
+                profile_to=None):
+    """All streams of `point` through `make_stream_tracker` (a crop budget
+    of chunk x n_real a stream, as bench.py), chunk by chunk, with the
+    launch counts and peak memory reset just before and read just after;
+    then each stream alone through the one-stream tracker, held against
+    its part of the batched run: ids and valid identical, tlwh within
+    1e-4, bit-equality reported. fps (aggregate, and one stream's alone,
+    the median of the streams) count every chunk after the first: all
+    their frames over all their seconds. With `profile_to`, one more run of the
+    first chunk from fresh states is traced by torch.profiler into that
+    file, after everything is measured. Returns the emitted result and
+    the batched run's site launches."""
+    import torch
+    from reid_tpu_torch.ops import _lib
+    from reid_tpu_torch.tracking import assignment
+    from reid_tpu_torch.tracking.pipeline import make_chunked_tracker
+    from reid_tpu_torch.tracking.streams import (init_stream_states,
+                                                 make_stream_tracker)
+    from reid_tpu_torch.tracking.tracker import init_tracker_state
+
+    cfg = stream_cfg(point, method)
+    n_s, chunk = point["streams"], point["chunk"]
+    n_chunks = point["n_chunks"]
+    budget = chunk * point["n_real"]
+    dev = data[0].device
+    run = make_stream_tracker(cfg, embed, (256, 128), chunk=chunk,
+                              crop_budget=budget, device=dev)
+    feat_dim = 512 + N_CLASSES
+
+    def chunks(x, s=None):
+        for c in range(n_chunks):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            yield [d[:, sl] if s is None else d[s, sl] for d in x]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    st = init_stream_states(n_s, point["max_tracks"], feat_dim, device=dev)
+    per_chunk, outs, prev = [], [], None
+    for c, x in enumerate(chunks(data)):
+        timing = {}
+        assignment.reset_host_reads()
+        t0 = time.perf_counter()
+        st, o = run(st, *x, prev_frame=prev, timing=timing)
+        o = {k: v.cpu() for k, v in o.items()}
+        per_chunk.append(dict(
+            s=time.perf_counter() - t0, host_reads=assignment.host_reads(),
+            **{f"{k}_ms": 1e3 * v for k, v in timing.items()}))
+        outs.append(o)
+        prev = x[0][:, -1]
+    counts = _lib.launch_counts()
+    sites = {f"{n} {list(s)}": c
+             for (n, s), c in _lib.site_launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: torch.cat([o[k] for o in outs], 1) for k in outs[0]}
+
+    # each stream alone, on the same frames and anchors
+    single = make_chunked_tracker(cfg, embed, (256, 128), chunk,
+                                  crop_budget=budget)
+    single_s, bit_equal, same = [], [], []
+    for s in range(n_s):
+        one, ref, prev = init_tracker_state(point["max_tracks"], feat_dim,
+                                            device=dev), [], None
+        for c, x in enumerate(chunks(data, s)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one, o = single(one, *x, prev_frame=prev)
+            ref.append({k: v.cpu() for k, v in o.items()})
+            if c == 1:
+                single_s.append(0.0)
+            if c >= 1:
+                single_s[-1] += time.perf_counter() - t0
+            prev = x[0][-1]
+        want = {k: torch.cat([o[k] for o in ref]) for k in ref[0]}
+        v = want["valid"]
+        same.append(bool(torch.equal(got["valid"][s], v)
+                         and torch.equal(got["ids"][s], want["ids"])
+                         and (got["tlwh"][s][v] - want["tlwh"][v]).abs()
+                         .max().item() <= 1e-4))
+        bit_equal.append(all(torch.equal(got[k][s], want[k]) for k in want))
+    busy_ms = None
+    if profile_to:
+        first = next(chunks(data))
+        _, busy_ms = profiled(lambda: run(init_stream_states(
+            n_s, point["max_tracks"], feat_dim, device=dev), *first),
+            profile_to)
+    timed = chunk * (n_chunks - 1)
+    res = dict(method=method, **{k: point[k] for k in (
+                   "streams", "chunk", "hw", "n_real", "max_dets",
+                   "max_tracks", "n_chunks")},
+               embed_batch=n_s * budget, chunks=per_chunk,
+               fps_aggregate=n_s * timed / sum(c["s"] for c in per_chunk[1:]),
+               fps_single_stream=timed / float(np.median(single_s)),
+               peak_mem_gb=peak / 1e9, launches=counts,
+               site_launches=sites, device_kernel_ms_first_chunk=busy_ms,
+               valid_rows=int(got["valid"].sum()),
+               distinct_ids_per_stream=[
+                   len(set(got["ids"][s][got["valid"][s]].tolist()))
+                   for s in range(n_s)],
+               streams_equal_single=same, streams_bit_equal=bit_equal)
+    emit(f"streams {name}", **res)
+    assert all(same), res
+    assert np.all(np.isfinite(got["tlwh"][got["valid"]].numpy()))
+    assert min(res["distinct_ids_per_stream"]) >= point["n_real"] * 0.8, res
+    for k in ("conv3x3_s8", "se_basic_block_s8"):
+        assert counts.get(k, 0) == 2 * n_chunks * (k == "conv3x3_s8") \
+            + 4 * n_chunks * (k != "conv3x3_s8"), (k, counts)
+    return res, sites
+
+
+def k2_row(kind, mod, x, dtype, name, path):
+    """K2 at one call site, held against its plain version (the limits of
+    phase 3; bit-equality reported) and timed beside it (3 calls of the
+    plain version)."""
+    import torch
+    from reid_tpu_torch.ops import qblock
+
+    p, ibn = mod.p, mod.ibn
+    bsz, h, w, cin = x.shape
+    cout, mip = p.w2.shape[0], p.wfc1.shape[1]
+    esize = torch.finfo(dtype).bits // 8
+
+    def call():
+        return qblock.se_basic_block_s8(x, p, ibn, dtype)
+    got = call()
+    want = qblock.se_basic_block_s8_plain(x, p, ibn, dtype)
+    torch.cuda.synchronize()
+    share, err = within(got.float(), want.float())
+    bit_equal = bool(torch.equal(got, want))
+    del got, want
+    m = bsz * h * w
+    down = p.wd is not None
+    ops = (2 * m * cout * 9 * (cin + cout) + (2 * m * cout * cin if down
+                                              else 0) + 4 * bsz * cout * mip)
+    nbytes = (esize * m * cin + 9 * cout * (cin + cout)
+              + (cout * cin if down else 0) + 4 * cout * mip + 4 * 9 * cout
+              + esize * m * cout)
+    bms, by = bound(ops, nbytes, kind)
+    row = dict(name=name, route="cuda", source=K2_SOURCE,
+               replaces=K2_REPLACES, path=path,
+               site=[h, w, cin, cout, int(ibn)], batch=bsz, down=down,
+               max_abs_err=err, bit_equal=bit_equal, share_tight=share,
+               ms=time_ms(call, reps=10),
+               plain_ms=time_ms(lambda: qblock.se_basic_block_s8_plain(
+                   x, p, ibn, dtype), reps=3, warm=1),
+               bound_ms=bms, bound_by=by, library_ms=None)
+    emit(f"kernel {name}", **row)
+    return row
+
+
+def phase_streams(kind, dev, profile=False):
+    """Phase 4d: multi-stream tracking at both operating points of
+    `STREAM_POINTS` with the CLI's int8 embed (`cli.build_embed`), and
+    botsort streams with GMC on phase 4's pan (PAN) at the MOT16-load
+    point; then K1 and K2 at the stream batch (B = 8192), held against
+    their plain versions."""
+    import torch
+    from reid_tpu_torch.cli import build_embed, full_f32
+    from reid_tpu_torch.utils.quantize import quantize_input
+
+    embed, _ = build_embed("seres18", N_CLASSES, (256, 128), dev, int8=True)
+    out, sites8 = {}, None
+    with full_f32(), torch.inference_mode():
+        for name, point in STREAM_POINTS.items():
+            data = stream_data(point, dev)
+            out[name], sites = run_streams(
+                name, point, embed, data, profile_to=os.path.join(
+                    OUT_DIR, f"profile_streams_{name}.txt")
+                if profile else None)
+            if name == "multistream8":
+                sites8 = sites
+            del data
+        point = STREAM_POINTS["mot16_load_multistream8"]
+        data = stream_data(point, dev, pan=PAN)
+        out["botsort"], _ = run_streams("mot16_load_multistream8 botsort",
+                                        point, embed, data, "botsort")
+        # the device affines of each stream's second chunk against the pan
+        from reid_tpu_torch.tracking.gmc import chunk_affines_translation
+        aff = chunk_affines_translation(data[0][:, point["chunk"] - 1],
+                                        data[0][:, point["chunk"]:])
+        err = (aff[..., 2] - torch.tensor(PAN, dtype=torch.float32,
+                                          device=dev)).abs().max().item()
+        emit("streams botsort gmc", pan=list(PAN), max_err_to_pan=err)
+        assert err <= 1.0, err
+        del data
+    torch.cuda.empty_cache()
+
+    # K1 and K2 at the stream batch: every crop of a multistream8 chunk
+    gen = torch.Generator(device=dev).manual_seed(0)
+    point = STREAM_POINTS["multistream8"]
+    b = point["streams"] * point["chunk"] * point["n_real"]
+    crops = torch.randn((b, 256, 128, 3), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    qm, seen = quantized_trunk(dev, torch.bfloat16, crops[:32], crops)
+    del crops
+    rows = []
+    with torch.inference_mode():
+        for site, _ in K1_SITES:
+            mod = qm.get_submodule(site.replace("/", "."))
+            xq = quantize_input(seen.pop(site), mod.sx).contiguous()
+            row, got = k1_row(kind, mod, xq, torch.bfloat16,
+                              f"conv3x3_s8 {site} streams", "streams")
+            rows.append(row)
+            del got, xq
+        for site in K2_SITES:
+            rows.append(k2_row(kind, qm.get_submodule(site),
+                               seen.pop(site).contiguous(), torch.bfloat16,
+                               f"se_basic_block_s8 {site} streams",
+                               "streams"))
+    del seen, qm
+    torch.cuda.empty_cache()
+    set_launches(rows, sites8)
+    return out, rows
+
+
+def phase_ivf(keep, query, gallery):
+    """Phase 11: IVF search on phase 6's features (the first Jaccard's
+    de-biased unit rows, N = 23,100), with the plan `choose_search` makes
+    for `--search_option ivf`: seconds of k-means, bucketing and
+    `ivf_topk`, recall@k1 of its ranking against the exact top-k1 (K6),
+    then CMC/mAP of the whole post-embed half with the IVF plan beside
+    phase 6's dense, K7's launches counted around it; and card against CPU
+    on phase 10's 1,024 features with one shared k-means init: bucket ids
+    equal, rankings equal but for near-ties (reported)."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.config import Config, RetrievalConfig
+    from reid_tpu_torch.eval.inference import evaluate_features
+    from reid_tpu_torch.ops import _lib
+    from reid_tpu_torch.ops.camera import diminish_camera_bias
+    from reid_tpu_torch.ops.distance import topk_neighbors
+    from reid_tpu_torch.ops.ivf import build_ivf, ivf_topk
+    from reid_tpu_torch.ops.policy import choose_search
+
+    def unit_rows(qf, gf, q_cams, g_cams):
+        cams = torch.as_tensor(np.concatenate([g_cams, q_cams]),
+                               device=gf.device)
+        x = diminish_camera_bias(torch.cat([gf, qf]), cams)
+        return x / x.norm(dim=1, keepdim=True)
+
+    k1 = 20
+    res = {}
+    with full_f32(), torch.inference_mode():
+        x = unit_rows(keep["qf"], keep["gf"], query.cams, gallery.cams)
+        plan = choose_search(x.shape[0], "ivf")
+        timing = {}
+        index = build_ivf(x, nlist=plan.nlist, timing=timing)
+        t0 = time.perf_counter()
+        _, rank = ivf_topk(index, x, k=k1, nprobe=plan.nprobe)
+        torch.cuda.synchronize()
+        timing["ivf_topk"] = time.perf_counter() - t0
+        _, exact = topk_neighbors(x, x, k=k1)
+        hits = (rank[:, :, None] == exact[:, None, :]).any(2)
+        res.update(n=x.shape[0], nlist=plan.nlist, nprobe=plan.nprobe,
+                   lists=int(index.centroids.shape[0]),
+                   bucket_rows=int(index.buckets.shape[1]), stage_s=timing,
+                   recall_at_k1=hits.double().mean().item(),
+                   rows_exact=(rank == exact).all(1).double().mean().item())
+        del x, index, rank, exact, hits
+        torch.cuda.empty_cache()
+
+        cfg = Config(retrieval=RetrievalConfig(search_option="ivf"))
+        steps = {}
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        cmc, mean_ap = evaluate_features(keep["qf"], keep["gf"], query,
+                                         gallery, cfg, verbose=False,
+                                         timing=steps)
+        torch.cuda.synchronize()
+        dense = RESULTS["retrieval"]
+        res.update(post_embed_s=time.perf_counter() - t0, steps_s=steps,
+                   launches=_lib.launch_counts(), cmc1=float(cmc[0]),
+                   cmc5=float(cmc[4]), cmc10=float(cmc[9]), mAP=mean_ap,
+                   dense_cmc1=dense["cmc1"], dense_mAP=dense["mAP"])
+        assert np.all(np.isfinite(cmc)) and 0.0 < mean_ap <= 1.0, res
+
+        # card against CPU, one k-means init (a CPU generator seeded 0)
+        qr = np.flatnonzero(query.labels < 32)
+        gr = np.flatnonzero(gallery.labels < 32)
+        xs = unit_rows(keep["qf"][qr].cpu(), keep["gf"][gr].cpu(),
+                       query.cams[qr], gallery.cams[gr])
+        small = choose_search(xs.shape[0], "ivf")
+        idx_c = build_ivf(xs, nlist=small.nlist)
+        dev = keep["qf"].device
+        idx_g = build_ivf(xs.to(dev), nlist=small.nlist)
+        d_c, r_c = ivf_topk(idx_c, xs, k=k1, nprobe=small.nprobe)
+        d_g, r_g = ivf_topk(idx_g, xs.to(dev), k=k1, nprobe=small.nprobe)
+        d_g, r_g = d_g.cpu(), r_g.cpu()
+        differ = ~(r_g == r_c).all(1)
+        # a differing row is a near-tie where the distances stay within
+        # rounding at every rank
+        gap = (d_g - d_c).abs().max().item()
+        res["card_vs_cpu"] = dict(
+            rows=xs.shape[0], nlist=small.nlist, nprobe=small.nprobe,
+            bucket_ids_equal=bool(torch.equal(idx_g.bucket_ids.cpu(),
+                                              idx_c.bucket_ids)),
+            rows_differing=int(differ.sum()), max_dist_diff=gap)
+    emit("ivf", **res)
+    assert res["card_vs_cpu"]["bucket_ids_equal"], res
+    assert res["card_vs_cpu"]["max_dist_diff"] <= 1e-5, res
+    assert res["launches"].get("l1", 0) + res["launches"].get(
+        "sqeuclidean", 0) > 0, res
+    return res
+
+
+def write_attributes(path, n_ids):
+    """A market_attribute.mat of `n_ids` ids (1..n_ids), age and 26 binary
+    attributes drawn from a generator seeded 0 (the published file's
+    layout: a struct with a test and a train table)."""
+    from scipy import io as scipy_io
+    rng = np.random.default_rng(0)
+    table = {"image_index": np.asarray(
+        [[f"{i:04d}" for i in range(1, n_ids + 1)]], dtype=object),
+        "age": rng.integers(1, 5, (1, n_ids)).astype(float)}
+    for a in range(26):
+        table[f"attr{a:02d}"] = rng.integers(1, 3, (1, n_ids)).astype(float)
+    scipy_io.savemat(path, {"market_attribute": {"test": table,
+                                                 "train": table}})
+    return path
+
+
+def phase_artifact(gallery, tmp, dev):
+    """Phase 12: serving artifacts. The f32 and the int8 export (one
+    QuantState, calibrated as `--int8` calibrates: the first 32 gallery
+    images) of SERes18 (751 classes, random weights seed 0) at 256x128
+    with a dynamic batch: seconds and file sizes; each loaded artifact at
+    B = 1, 3 and 64 against serving the model in process, bit for bit,
+    with K1/K2 launches counted around the artifact's calls; then
+    `inference --artifact` (f32 against the same weights in process, CMC
+    and mAP equal) and the int8 artifact with `--attributes_mat` on a
+    small in-memory split."""
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.data import synthetic_dataset
+    from reid_tpu_torch.eval.serving import (calibrate_serving_qstate,
+                                             export_reid_artifact,
+                                             load_serving_fn, make_embed_fn)
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.ops import _lib
+    from reid_tpu_torch.utils.quantize import quantized_model
+
+    res, paths = {}, {}
+    with cli.full_f32():
+        model = build_model("seres18", num_classes=N_CLASSES, device=dev)
+        calib = torch.from_numpy(gallery.gather(np.arange(32))["images"]).to(
+            dev).float()
+        qs = calibrate_serving_qstate(model, calib)
+        imgs = torch.from_numpy(gallery.gather(np.arange(64, 128))[
+            "images"]).to(dev).float()
+        for name, q in (("f32", None), ("int8", qs)):
+            paths[name] = os.path.join(tmp, f"reid_{name}.pt2")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            export_reid_artifact(model, paths[name], 256, 128, qstate=q)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = load_serving_fn(paths[name])
+            load_s = time.perf_counter() - t0
+            eager = make_embed_fn(model if q is None
+                                  else quantized_model(model, q))
+            runs = {}
+            with torch.inference_mode():
+                for b in (1, 3, 64):
+                    want = eager(imgs[:b])
+                    _lib.reset_launch_counts()
+                    got = loaded(imgs[:b])
+                    torch.cuda.synchronize()
+                    runs[b] = dict(bit_equal=bool(torch.equal(got, want)),
+                                   launches=_lib.launch_counts())
+                runs["ms_b64"] = time_ms(lambda: loaded(imgs), reps=5)
+                runs["eager_ms_b64"] = time_ms(lambda: eager(imgs), reps=5)
+            res[name] = dict(export_s=export_s, load_s=load_s,
+                             bytes=os.path.getsize(paths[name]), runs=runs)
+            for b in (1, 3, 64):
+                assert runs[b]["bit_equal"], (name, b, runs)
+                n1 = runs[b]["launches"].get("conv3x3_s8", 0)
+                n2 = runs[b]["launches"].get("se_basic_block_s8", 0)
+                assert (n1, n2) == ((2, 4) if q is not None else (0, 0)), \
+                    (name, b, runs[b])
+        del model, qs, calib, imgs
+    torch.cuda.empty_cache()
+
+    # the CLI on a small split: 64 queries, 256 gallery images, 32 ids
+    query = synthetic_dataset(64, num_pids=32, height=256, width=128,
+                              num_cams=N_CAMS, seed=11, palette_seed=3)
+    small = synthetic_dataset(256, num_pids=32, height=256, width=128,
+                              num_cams=N_CAMS, seed=12, palette_seed=3)
+    query.records = [(p, pid, (c + 3) % N_CAMS, 0)
+                     for p, pid, c, _ in query.records]
+    mat = write_attributes(os.path.join(tmp, "market_attribute.mat"), 32)
+    splits = (query, small, N_CLASSES)
+    runs = {}
+    for name, argv in (("direct", []), ("artifact f32",
+                                         ["--artifact", paths["f32"]]),
+                       ("artifact int8 + attributes",
+                        ["--artifact", paths["int8"], "--attributes_mat",
+                         mat])):
+        _lib.reset_launch_counts()
+        cmc, mean_ap = cli.inference(argv + ["--bs", "64"], device=dev,
+                                     splits=splits)
+        runs[name] = dict(cmc1=float(cmc[0]), cmc5=float(cmc[4]),
+                          mAP=mean_ap, launches=_lib.launch_counts())
+        assert np.all(np.isfinite(cmc)) and 0.0 < mean_ap <= 1.0, runs
+    res["cli"] = runs
+    emit("artifact", **res)
+    assert runs["artifact f32"]["cmc1"] == runs["direct"]["cmc1"], runs
+    assert runs["artifact f32"]["mAP"] == runs["direct"]["mAP"], runs
+    assert runs["artifact int8 + attributes"]["launches"].get(
+        "se_basic_block_s8", 0) > 0, runs
+    return res
+
+
 def set_launches(rows, sites):
     """Each K1/K2 row's launches at its call site in one run of its path."""
     for row in rows:
@@ -1449,9 +1949,10 @@ def set_launches(rows, sites):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="trace both track runs and the retrieval run with "
+                    help="trace both track runs, a chunk of each stream "
+                         "operating point and the retrieval run with "
                          "torch.profiler into chiprun_out/profile_{chunked,"
-                         "step,retrieval}.txt")
+                         "step,streams_*,retrieval}.txt")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1477,6 +1978,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_track_centernet(tmp)
     phase_gauntlet()
+    _, stream_rows = phase_streams(kind, dev, args.profile)
     phase_embed()
     # K1/K2 launches at their call sites on the track path; K3-K5 (here and
     # in the probe's rows) and K1's probe rows: the probe path's launches
@@ -1484,7 +1986,7 @@ def main():
     set_launches(track_rows, chunked["site_launches"])
     for row in [r for r in rows if r["path"] == "qconv probe"] + probe_rows:
         row["launches"] = probe_counts[row["name"].split()[0]]
-    rows += probe_rows + det_rows
+    rows += probe_rows + det_rows + stream_rows
 
     query, gallery, make_s = market_splits()
     keep, counts, _ = phase_retrieval(
@@ -1510,8 +2012,14 @@ def main():
         assert row["launches"] > 0, row
     rows += dist_rows
     phase_retrieval_cpu(keep, query, gallery)
+    ivf = phase_ivf(keep, query, gallery)
+    for row in dist_rows:
+        row["launches_ivf_run"] = ivf["launches"].get(
+            row["name"].split()[0], 0)
     del keep
     phase_embed_retrieval(query)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_artifact(gallery, tmp, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = {"kernels": [{k: row[k] for k in keys} for row in rows]}

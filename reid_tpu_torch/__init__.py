@@ -6,7 +6,10 @@ track serve path (`reid_tpu_torch.cli.track_main`: SERes18-IBN, the tracker
 and the hand-written Hopper kernels `conv3x3_s8` and `se_basic_block_s8`)
 and retrieval evaluation (`reid_tpu_torch.cli.inference_main`: TTA
 embeddings, camera de-bias, k-reciprocal re-ranking, DBSCAN, CMC/mAP, with
-the distance kernels `sqeuclidean` and `l1`). The kernels are CUDA C++ in
-`csrc/`. Entry points run on the card unless the caller passes
-`device="cpu"`.
+the distance kernels `sqeuclidean` and `l1`; IVF search, the Market
+attribute prior and `torch.export` serving artifacts). Multi-stream
+tracking on one card is `tracking.streams.make_stream_tracker`. The
+kernels are CUDA C++ in `csrc/`; `conv3x3_s8` and `se_basic_block_s8` are
+`torch.library` custom ops. Entry points run on the card unless the
+caller passes `device="cpu"`.
 """

@@ -18,11 +18,11 @@ the CPU with the kernels' plain versions.
     TTA flip, or the int8 serving embed with `--int8`) -> camera de-bias ->
     k-reciprocal Jaccard re-rank -> DBSCAN + tracklet smoothing -> re-rank
     -> CMC and mAP (`--no-rerank`: dot-product scores). `--ckpt` is the
-    `.npz` of the flax variable tree.
-
-Retrieval flags that belong to later slices of the port raise an error
-naming the slice: `--artifact` (a serving artifact), `--search_option ivf`
-and `--attributes_mat`. The port's retrieval runs on one device.
+    `.npz` of the flax variable tree; `--artifact` serves a `.pt2` written
+    by `eval.serving.export_reid_artifact` (torch.export, f32 or int8) in
+    its place, where the JAX package reads StableHLO. `--search_option
+    ivf` ranks through the IVF index, `--attributes_mat` adds the Market
+    attribute prior. The port's retrieval runs on one device.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
@@ -371,7 +371,13 @@ def _inference_parser() -> argparse.ArgumentParser:
     p.add_argument("--backbone", default="seres18")
     p.add_argument("--ckpt", default="",
                    help=".npz of the flax variable tree, '/'-joined keys")
-    p.add_argument("--artifact", default="")
+    p.add_argument("--artifact", default="",
+                   help="serving artifact: run checkpoint-free from the "
+                        "exported embed step (ref --onnx, "
+                        "image_reid_inference.py:239). A .pt2 written by "
+                        "this package's export_reid_artifact (torch.export), "
+                        "on the device it serves; the JAX package's "
+                        "StableHLO files are not read")
     p.add_argument("--bs", type=int, default=64)
     p.add_argument("--height", type=int, default=0,
                    help="override input height (0 = dataset default)")
@@ -383,25 +389,15 @@ def _inference_parser() -> argparse.ArgumentParser:
                    choices=["auto", "dense", "sparse", "ivf"],
                    help="gallery-size search policy (the faiss "
                         "search_option role): auto picks dense or top-S "
-                        "by N")
+                        "by N; ivf takes an IVF approximate ranking")
     p.add_argument("--eps", type=float, default=0.55)
-    p.add_argument("--attributes_mat", default="")
+    p.add_argument("--attributes_mat", default="",
+                   help="market_attribute.mat: add the Market-1501 "
+                        "attribute prior to the Jaccard distances")
     p.add_argument("--int8", action="store_true",
                    help="serve the embed post-training-quantized to int8, "
                         "calibrated on the first gallery batch")
     return p
-
-
-def _later_inference(p: argparse.ArgumentParser, args) -> None:
-    if args.artifact:
-        p.error("--artifact: serving artifacts (StableHLO in reid_tpu; "
-                "torch.export here) are ported in a later slice; use --ckpt")
-    if args.search_option == "ivf":
-        p.error("--search_option ivf: IVF search (ops/ivf.py) is ported in "
-                "a later slice")
-    if args.attributes_mat:
-        p.error("--attributes_mat: the Market attribute prior "
-                "(eval/attributes.py) is ported in a later slice")
 
 
 def _base_cfg(args, num_classes: int):
@@ -432,8 +428,9 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
     """The body of `inference_main`; returns (CMC, mAP).
 
     `splits` = (query, gallery, num_train_pids) takes the place of the
-    dataset under `--root` (in-memory splits); without `--ckpt` such a run
-    uses a random init from a generator seeded 0. `timing` and `keep` are
+    dataset under `--root` (in-memory splits); without `--ckpt` or
+    `--artifact` such a run uses a random init from a generator seeded 0
+    (build_model's). `timing` and `keep` are
     handed to `run_inference` (stage seconds; embeddings and distances)."""
     from .data.dataset import ReIDDataset
     from .eval.inference import run_inference
@@ -441,10 +438,13 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
 
     p = _inference_parser()
     args = p.parse_args(argv)
-    _later_inference(p, args)
+    if args.int8 and args.artifact:
+        p.error("--int8 needs --ckpt (export an int8 artifact instead via "
+                "export_reid_artifact(int8_calib=...))")
     if splits is None:
-        if not args.ckpt:
-            p.error("need --ckpt (the .npz of the flax variable tree)")
+        if not args.ckpt and not args.artifact:
+            p.error("need --ckpt (the .npz of the flax variable tree) or "
+                    "--artifact")
         from .data.datasets import build_dataset
         raw = build_dataset(args.dataset, args.root)
         num_pids = raw.num_train_pids
@@ -456,16 +456,27 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
         query = ReIDDataset(raw.query, num_pids, h, w)
         gallery = ReIDDataset(raw.gallery, num_pids, h, w)
 
+    attribute_dist = None
+    if args.attributes_mat and args.dataset == "market1501":
+        from .eval.attributes import get_attribute_dist, get_attributes
+        ids, attrs = get_attributes(args.attributes_mat)
+        pids = np.concatenate([gallery.labels, query.labels])
+        attribute_dist = get_attribute_dist(ids, attrs, pids)
+
     # the reference embeds and re-ranks in full f32 (the JAX CLI builds the
     # model in f32)
     with full_f32():
-        model = build_model(cfg.model.backbone, num_classes=num_pids,
-                            num_cams=cfg.model.num_cams,
-                            dtype=torch.float32, device=device)
-        if args.ckpt:
-            from .utils.flax_bridge import load_flax_variables
-            load_flax_variables(model, args.ckpt)
-        embed_fn = None
+        model = embed_fn = None
+        if args.artifact:
+            from .eval.serving import load_serving_fn
+            embed_fn = load_serving_fn(args.artifact)
+        else:
+            model = build_model(cfg.model.backbone, num_classes=num_pids,
+                                num_cams=cfg.model.num_cams,
+                                dtype=torch.float32, device=device)
+            if args.ckpt:
+                from .utils.flax_bridge import load_flax_variables
+                load_flax_variables(model, args.ckpt)
         if args.int8:
             from .eval.serving import make_int8_embed_fn
             # the eval loader's first batch of min(bs, 32), wrap-padded
@@ -477,7 +488,8 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
                                           tta_flip=cfg.retrieval.tta_flip)
         return run_inference(model, query, gallery, cfg,
                              rerank=not args.no_rerank, embed_fn=embed_fn,
-                             device=device, timing=timing, keep=keep)
+                             device=device, timing=timing, keep=keep,
+                             attribute_dist=attribute_dist)
 
 
 def inference_main(argv=None, device: Optional[str] = "cuda"):

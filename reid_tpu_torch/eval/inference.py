@@ -2,11 +2,11 @@
 
 Counterpart of `reid_tpu/eval/inference.py:run_inference` (ref :161-320):
 gallery + query TTA embeddings -> merge -> camera de-bias -> k-reciprocal
-Jaccard -> DBSCAN -> tracklet smoothing -> Jaccard again -> CMC/mAP, or
-plain dot-product scores when re-ranking is off. `evaluate_features` is
-the part after the embedding, so that the same features can go through it
-on the card and on the CPU. The Market attribute prior and the
-multi-device mesh belong to later slices.
+Jaccard (+ the Market attribute prior, where given) -> DBSCAN -> tracklet
+smoothing -> Jaccard again -> CMC/mAP, or plain dot-product scores when
+re-ranking is off. `evaluate_features` is the part after the embedding, so
+that the same features can go through it on the card and on the CPU. The
+multi-device mesh comes with the port of `reid_tpu/parallel/`.
 
 With a `timing` dict, each stage's seconds are added to it under its name
 (embed, debias, jaccard1, dbscan, smoothing, jaccard2, eval), with the
@@ -36,9 +36,12 @@ def _steps(timing: Optional[dict], name: str) -> Optional[dict]:
 def evaluate_features(qf: torch.Tensor, gf: torch.Tensor, query, gallery,
                       cfg, rerank: bool = True, verbose: bool = True,
                       timing: Optional[Dict[str, float]] = None,
-                      keep: Optional[dict] = None):
+                      keep: Optional[dict] = None,
+                      attribute_dist: Optional[np.ndarray] = None):
     """(CMC, mAP) from query and gallery embeddings on one device.
-    `query` and `gallery` give `labels`, `cams` and `seqs` (numpy). With
+    `query` and `gallery` give `labels`, `cams` and `seqs` (numpy).
+    `attribute_dist` ((N, N) over [gallery ; query], `eval/attributes.py`)
+    is added to the first Jaccard distances, as the reference does. With
     `keep`, the final merged distance matrix is stored under "dists"."""
     dev = gf.device
     stages = StageTimer(timing, dev)
@@ -63,6 +66,8 @@ def evaluate_features(qf: torch.Tensor, gf: torch.Tensor, query, gallery,
     dists = jaccard_distance(merged, k1=r.k1, k2=r.k2, sparse_s=sparse_s,
                              search_option=r.search_option,
                              timing=_steps(timing, "jaccard1_steps"))
+    if attribute_dist is not None:
+        dists = dists + torch.as_tensor(attribute_dist, device=dev)
     stages.mark("jaccard1")
 
     # DBSCAN over the merged distances -> pseudo groups; tracklet id =
@@ -96,12 +101,14 @@ def run_inference(model, query, gallery, cfg, rerank: bool = True,
                   verbose: bool = True,
                   embed_fn: Optional[Callable] = None, device="cuda",
                   timing: Optional[Dict[str, float]] = None,
-                  keep: Optional[dict] = None):
+                  keep: Optional[dict] = None,
+                  attribute_dist: Optional[np.ndarray] = None):
     """Returns (CMC, mAP). Follows ref image_reid_inference.py main
-    :242-320. `embed_fn` (images [0, 255] -> embeddings, e.g. the int8
-    serving embed) replaces the model's TTA extractor. With `keep`, the
-    embeddings are stored under "qf" and "gf" (and the final distances, see
-    `evaluate_features`)."""
+    :242-320. `embed_fn` (images [0, 255] -> embeddings: the int8 serving
+    embed, or a loaded serving artifact) replaces the model's TTA
+    extractor, and `model` may then be None. With `keep`, the embeddings
+    are stored under "qf" and "gf" (and the final distances, see
+    `evaluate_features`); `attribute_dist` goes to `evaluate_features`."""
     stages = StageTimer(timing, device)
     bs = cfg.train.batch_size
     if embed_fn is not None:
@@ -116,4 +123,5 @@ def run_inference(model, query, gallery, cfg, rerank: bool = True,
     if keep is not None:
         keep.update(qf=qf, gf=gf)
     return evaluate_features(qf, gf, query, gallery, cfg, rerank=rerank,
-                             verbose=verbose, timing=timing, keep=keep)
+                             verbose=verbose, timing=timing, keep=keep,
+                             attribute_dist=attribute_dist)

@@ -4,9 +4,9 @@ An own copy of `reid_tpu/ops/policy.py` (pure Python, unchanged below this
 paragraph; a test holds the two equal on every option), so that the port
 imports nothing of the JAX package. Every measurement in these notes, and
 the crossover points they set, was taken on a TPU v5e by the JAX package;
-none has been taken on the card. The port has no IVF search yet
-(`ops/ivf.py` is a later slice), so its `jaccard_distance` refuses the
-"ivf" plan.
+none has been taken on the card. The port's `jaccard_distance` runs the
+"ivf" plan through its own `ops/ivf.py`, which `option="ivf"` selects and
+"auto" never does.
 
 The reference picks its retrieval engine by an explicit CLI option
 (ref `reid/faiss_utils.py:121-181`: 0 GpuIndexFlatL2 brute force,

@@ -187,14 +187,63 @@ def _workspace_bytes(key) -> int:
     return nbytes
 
 
+def _params(w1, w2, a1, c1, a2, c2, inv_sx1, inv_sx2, wfc1, wfc2, wd, ad, cd,
+            inv_sxd, dq1_vec, in_scale, in_bias) -> QBlockParams:
+    return QBlockParams(w1, w2, a1, c1, a2, c2, inv_sx1, inv_sx2, wfc1, wfc2,
+                        wd, ad, cd, inv_sxd if wd is not None else None,
+                        dq1_vec, in_scale, in_bias)
+
+
+def _out_dtype(out_f32: bool):
+    return torch.float32 if out_f32 else torch.bfloat16
+
+
+# K2 is the custom op `reid_tpu_torch::se_basic_block_s8`, with
+# `QBlockParams` flattened into its arguments, so that `torch.export`
+# traces it as one node and dispatches it by device: the plain version on a
+# CPU tensor, the kernel (its workspace allocated inside) on a CUDA tensor.
+@torch.library.custom_op("reid_tpu_torch::se_basic_block_s8",
+                         mutates_args=(), device_types="cpu")
+def _se_basic_block_s8_op(
+        x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+        a1: torch.Tensor, c1: torch.Tensor, a2: torch.Tensor,
+        c2: torch.Tensor, inv_sx1: float, inv_sx2: float,
+        wfc1: torch.Tensor, wfc2: torch.Tensor, wd: Optional[torch.Tensor],
+        ad: Optional[torch.Tensor], cd: Optional[torch.Tensor],
+        inv_sxd: float, dq1_vec: Optional[torch.Tensor],
+        in_scale: Optional[torch.Tensor], in_bias: Optional[torch.Tensor],
+        ibn: bool, out_f32: bool) -> torch.Tensor:
+    p = _params(w1, w2, a1, c1, a2, c2, inv_sx1, inv_sx2, wfc1, wfc2, wd, ad,
+                cd, inv_sxd, dq1_vec, in_scale, in_bias)
+    return se_basic_block_s8_plain(x, p, ibn, _out_dtype(out_f32))
+
+
+@_se_basic_block_s8_op.register_fake
+def _(x, w1, w2, *rest):
+    out_f32 = rest[-1]
+    return x.new_empty((*x.shape[:3], w2.shape[0]), dtype=_out_dtype(out_f32))
+
+
 def se_basic_block_s8(x: torch.Tensor, p: QBlockParams, ibn: bool = False,
                       out_dtype=torch.bfloat16) -> torch.Tensor:
     """Fused int8 SE basic block (stride 1): (B,H,W,Cin) -> (B,H,W,Cout),
     bf16 to bf16 or f32 to f32. `p.wd is not None` selects the 1x1 int8
     down branch, otherwise Cin == Cout and the identity branch is used.
     `ibn=True` applies IBN-a after conv1."""
-    if x.device.type == "cpu":
-        return se_basic_block_s8_plain(x, p, ibn, out_dtype)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    return torch.ops.reid_tpu_torch.se_basic_block_s8(
+        x, p.w1, p.w2, p.a1, p.c1, p.a2, p.c2, p.inv_sx1, p.inv_sx2, p.wfc1,
+        p.wfc2, p.wd, p.ad, p.cd, p.inv_sxd if p.wd is not None else 0.0,
+        p.dq1_vec, p.in_scale, p.in_bias, ibn, out_dtype == torch.float32)
+
+
+@_se_basic_block_s8_op.register_kernel("cuda")
+def _(x, w1, w2, a1, c1, a2, c2, inv_sx1, inv_sx2, wfc1, wfc2, wd, ad, cd,
+      inv_sxd, dq1_vec, in_scale, in_bias, ibn, out_f32):
+    p = _params(w1, w2, a1, c1, a2, c2, inv_sx1, inv_sx2, wfc1, wfc2, wd, ad,
+                cd, inv_sxd, dq1_vec, in_scale, in_bias)
+    out_dtype = _out_dtype(out_f32)
     b, h, w, cin = x.shape
     cout = p.w2.shape[0]
     mip = p.wfc1.shape[1]

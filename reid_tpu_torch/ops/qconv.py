@@ -88,6 +88,25 @@ def _check(name: str, x: torch.Tensor, wt: torch.Tensor,
                              "tensors on one device")
 
 
+def _out_dtype(out_f32: bool):
+    return torch.float32 if out_f32 else torch.bfloat16
+
+
+# K1 is the custom op `reid_tpu_torch::conv3x3_s8`, so that `torch.export`
+# traces it as one node (a serving artifact keeps it) and dispatches it by
+# device: the plain version on a CPU tensor, the kernel on a CUDA tensor.
+@torch.library.custom_op("reid_tpu_torch::conv3x3_s8", mutates_args=(),
+                         device_types="cpu")
+def _conv3x3_s8_op(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
+                   out_f32: bool) -> torch.Tensor:
+    return conv3x3_s8_plain(x, wt, scale, _out_dtype(out_f32))
+
+
+@_conv3x3_s8_op.register_fake
+def _(x, wt, scale, out_f32):
+    return x.new_empty((*x.shape[:3], wt.shape[0]), dtype=_out_dtype(out_f32))
+
+
 def conv3x3_s8(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
                out_dtype=torch.bfloat16) -> torch.Tensor:
     """3x3 / stride-1 / SAME conv: int8 NHWC x packed int8 -> `out_dtype`.
@@ -95,8 +114,15 @@ def conv3x3_s8(x: torch.Tensor, wt: torch.Tensor, scale: torch.Tensor,
     x (B, H, W, Cin) int8; wt (Cout, 9*Cin) int8 from `pack_conv_weight`;
     scale (Cout,) f32 (act_scale * w_scale) multiplied into the s32
     accumulator. Returns (B, H, W, Cout) in bf16 or f32."""
-    if x.device.type == "cpu":
-        return conv3x3_s8_plain(x, wt, scale, out_dtype)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    return torch.ops.reid_tpu_torch.conv3x3_s8(x, wt, scale,
+                                               out_dtype == torch.float32)
+
+
+@_conv3x3_s8_op.register_kernel("cuda")
+def _(x, wt, scale, out_f32):
+    out_dtype = _out_dtype(out_f32)
     b, h, w, cin = x.shape
     cout = wt.shape[0]
     _check(NAME, x, wt, scale, out_dtype, cout, (cout, 9 * cin))

@@ -1,10 +1,12 @@
 """k-reciprocal Jaccard re-ranking (Zhong et al., CVPR'17), single device.
 
 Counterpart of `reid_tpu/ops/rerank.py` (`compute_jaccard_distance`,
-`_jaccard_from_rank`, `_minsum_topk_rows`, `jaccard_distance`; the mesh and
-IVF variants belong to later slices). The steps are the reference's:
+`compute_jaccard_distance_ivf`, `_jaccard_from_rank`, `_minsum_topk_rows`,
+`jaccard_distance`; the mesh variant comes with the port of
+`reid_tpu/parallel/`). The steps are the reference's:
 
-  1. initial ranking       -> `topk_neighbors` (kernel K6)
+  1. initial ranking       -> `topk_neighbors` (kernel K6), or the IVF
+                              approximate ranking (`ops/ivf.py`)
   2. k-reciprocal sets     -> boolean scatter F, R = F & F^T
   3. local query expansion -> one 0/1 matmul (the 2/3-overlap rule)
   4. V encoding            -> masked softmax of 2*sim over the expansion set
@@ -164,6 +166,38 @@ def compute_jaccard_distance(features: torch.Tensor, k1: int = 20,
                               sparse_s=sparse_s, timing=timing)
 
 
+def compute_jaccard_distance_ivf(
+        features: torch.Tensor, k1: int = 20, k2: int = 6,
+        sparse_s: Optional[int] = None, nlist: int = 256, nprobe: int = 32,
+        generator: Optional[torch.Generator] = None,
+        timing: Optional[dict] = None) -> torch.Tensor:
+    """Jaccard with an IVF approximate initial ranking (ref
+    faiss_utils.py:158-181 GpuIndexIVFFlat): the O(N^2 D) self-kNN becomes
+    about O(N * nprobe/nlist * N D) through `ops/ivf.py`; the re-ranking
+    downstream is unchanged, and the ranking's recall is the IVF recall
+    (exact when nprobe covers every list). `generator` draws k-means'
+    initial rows (`ops.kmeans.init_indices`). `timing` gets the seconds of
+    kmeans and buckets (the index), topk, then `_jaccard_from_rank`'s
+    steps."""
+    from .ivf import build_ivf, ivf_topk
+
+    feats = features.to(torch.float32)
+    feats = feats / torch.clamp(torch.linalg.norm(feats, dim=1, keepdim=True),
+                                min=1e-12)
+    index = build_ivf(feats, nlist=min(nlist, feats.shape[0]),
+                      generator=generator, timing=timing)
+    stages = StageTimer(timing, feats.device)
+    _, initial_rank = ivf_topk(index, feats, k=k1,
+                               nprobe=min(nprobe, nlist))
+    # a -1 pad (a probed set smaller than k1) becomes self, so that the
+    # masks downstream stay valid
+    self_idx = torch.arange(feats.shape[0], device=feats.device)[:, None]
+    initial_rank = torch.where(initial_rank >= 0, initial_rank, self_idx)
+    stages.mark("topk")
+    return _jaccard_from_rank(feats, initial_rank, k1=k1, k2=k2,
+                              sparse_s=sparse_s, timing=timing)
+
+
 def jaccard_distance(features: torch.Tensor, k1: int = 20, k2: int = 6,
                      sparse_s: Optional[int] = None,
                      search_option: Optional[str] = None,
@@ -171,17 +205,17 @@ def jaccard_distance(features: torch.Tensor, k1: int = 20, k2: int = 6,
     """The dispatcher `eval/inference.py` calls. `search_option` applies
     the gallery-size policy (ops/policy.py): "auto" picks dense or top-S
     sparse by N; "dense" and "sparse" force one. None keeps the legacy
-    behaviour (dense unless `sparse_s` is given). The IVF plan and the
-    multi-device mesh belong to later slices of the port. `timing` gets
-    the seconds of each step (topk, then `_jaccard_from_rank`'s)."""
+    behaviour (dense unless `sparse_s` is given); "ivf" takes the IVF
+    ranking with the plan's nlist and nprobe. `timing` gets the seconds of
+    each step (topk, then `_jaccard_from_rank`'s)."""
     if search_option is not None:
         from .policy import choose_search
         plan = choose_search(int(features.shape[0]), search_option,
                              sparse_s or 0)
         if plan.strategy == "ivf":
-            raise NotImplementedError(
-                "IVF search (reid_tpu/ops/ivf.py) is ported in a later "
-                "slice; use search_option dense|sparse|auto")
+            return compute_jaccard_distance_ivf(
+                features, k1=k1, k2=k2, sparse_s=plan.sparse_s,
+                nlist=plan.nlist, nprobe=plan.nprobe, timing=timing)
         sparse_s = plan.sparse_s
     return compute_jaccard_distance(features, k1=k1, k2=k2,
                                     sparse_s=sparse_s, timing=timing)

@@ -86,32 +86,34 @@ def chunk_affines_translation(prev_last: torch.Tensor, frames: torch.Tensor,
     """Translation-only phase correlation between consecutive frames of a
     chunk, all T pairs in one batched FFT, on the device the frames lie on.
 
-    prev_last (H, W, 3): the frame before the chunk (frames[0] makes the
-    first affine the identity); frames (T, H, W, 3). Returns (T, 2, 3) f32
-    affines mapping frame t-1 coords to frame t coords. `downscale=0` picks
-    `auto_downscale`; the correlation peak is refined to a fraction of a
-    downscaled bin by a separable parabolic fit over its wrapped
-    neighbours."""
+    prev_last (..., H, W, 3): the frame before the chunk (frames[..., 0,
+    :, :, :] makes the first affine the identity); frames (..., T, H, W,
+    3), where a leading axis is the stream axis of a batched tracker.
+    Returns (..., T, 2, 3) f32 affines mapping frame t-1 coords to frame t
+    coords. `downscale=0` picks `auto_downscale`; the correlation peak is
+    refined to a fraction of a downscaled bin by a separable parabolic fit
+    over its wrapped neighbours."""
     if downscale <= 0:
-        downscale = auto_downscale(frames.shape[1], frames.shape[2])
+        downscale = auto_downscale(frames.shape[-3], frames.shape[-2])
     ds = downscale
     # subsample before the channel mean: the same values, a fraction of the
     # memory of a float copy of the full frames
-    seq = torch.cat([prev_last[None], frames])[:, ::ds, ::ds]
+    seq = torch.cat([prev_last[..., None, :, :, :], frames], dim=-4)[
+        ..., ::ds, ::ds, :]
     g = seq.to(torch.float32).mean(dim=-1)
     g = g - g.mean(dim=(-2, -1), keepdim=True)
     f = torch.fft.rfft2(g)
-    cross = f[:-1] * torch.conj(f[1:])
+    cross = f[..., :-1, :, :] * torch.conj(f[..., 1:, :, :])
     corr = torch.fft.irfft2(cross / torch.clamp(cross.abs(), min=1e-9),
                             s=g.shape[-2:])
-    t, h, w = corr.shape
-    flat = corr.reshape(t, -1)
+    lead, (h, w) = corr.shape[:-2], corr.shape[-2:]
+    flat = corr.reshape(*lead, h * w)
     idx = torch.argmax(flat, dim=-1)
     dy, dx = idx // w, idx % w
 
     def at(dyo, dxo):
         j = ((dy + dyo) % h) * w + (dx + dxo) % w
-        return torch.gather(flat, 1, j[:, None])[:, 0]
+        return torch.gather(flat, -1, j[..., None])[..., 0]
 
     c0 = at(0, 0)
     cym, cyp = at(-1, 0), at(1, 0)
@@ -130,6 +132,6 @@ def chunk_affines_translation(prev_last: torch.Tensor, frames: torch.Tensor,
     dy = dy + sub(cym, c0, cyp)
     dx = dx + sub(cxm, c0, cxp)
     eye = torch.eye(2, dtype=torch.float32, device=frames.device).expand(
-        t, 2, 2)
+        *lead, 2, 2)
     trans = torch.stack([-dx * ds, -dy * ds], dim=-1)
     return torch.cat([eye, trans[..., None]], dim=-1)

@@ -4,7 +4,8 @@ Counterpart of `reid_tpu/tracking/pipeline.py`: per frame, detections ->
 crops -> ReID embed -> association -> MOT rows, with per-stage timing. The
 chunked path crops every frame of a chunk, embeds all the chunk's crops in
 one batch and then associates frame by frame (the JAX `lax.scan` becomes a
-Python loop). Crops are built frame by frame into one buffer, which gives
+Python loop), for S streams at once (`ChunkedTracker`, `streams.py`).
+Crops are built frame by frame into one buffer, which gives
 the batched result while bounding the memory of the hat-matrix products at
 1080p.
 
@@ -21,10 +22,12 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig
+from ..utils.timing import StageTimer
 from .gmc import chunk_affines_translation, estimate_affine
 from .methods import uses_gmc
 from .mot import write_mot_txt
-from .tracker import Tracker, _update_impl, apply_gmc
+from .tracker import (Tracker, _update_impl, apply_gmc, stack_states,
+                      unstack_state)
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -170,8 +173,12 @@ def make_crop_embed(embed_fn: Callable, crop_hw: Tuple[int, int],
 
 
 class ChunkedTracker:
-    """Tracks a chunk of frames: crop and embed every frame's boxes in one
-    batch (`embed`), then associate frame by frame (`associate`)."""
+    """Tracks a chunk of frames of S streams: crop every frame's boxes and
+    embed all streams' crops in one batch (`embed`), then associate frame
+    by frame, all streams at once (`associate`). Every input and output has
+    a leading stream axis (the JAX package's `jax.vmap` of its chunk
+    program, `reid_tpu/tracking/streams.py`); calling the object tracks
+    one stream, as S = 1 of the same code."""
 
     def __init__(self, cfg: TrackerConfig, embed_fn, crop_hw, chunk: int,
                  crop_budget: Optional[int], use_gmc: bool,
@@ -191,102 +198,128 @@ class ChunkedTracker:
                 "chunk")
 
     def embed(self, frames, tlwh, conf, valid):
-        """frames (T,H,W,3) uint8; tlwh (T,D,4); conf/valid (T,D) ->
-        (feats (T,D,F), valid (T,D))."""
-        t, d = tlwh.shape[:2]
+        """frames (S,T,H,W,3) uint8; tlwh (S,T,D,4); conf/valid (S,T,D) ->
+        (feats (S,T,D,F), valid (S,T,D)). The per-frame cap and the crop
+        budget select within each stream; the crops of all streams go to
+        `embed_fn` in one call."""
+        n_s, t, d = tlwh.shape[:3]
         dev = tlwh.device
         ch, cw = self.crop_hw
         k = self.k_embed
         cap = d if self.cap is None else min(self.cap, d)
         emb = (torch.arange(t, device=dev) % k) == 0
+        s_idx = torch.arange(n_s, device=dev)[:, None]
         if cap < d:
             # pre-crop per-frame selection of the top-cap valid boxes
             score_f = torch.where(valid, conf, float("-inf"))
-            sel_f = topk_indices(score_f, cap)                   # (T, cap)
-            boxes_c = torch.gather(tlwh, 1, sel_f[..., None].expand(-1, -1,
-                                                                    4))
-            conf_c = torch.gather(conf, 1, sel_f)
-            valid_c = torch.gather(valid, 1, sel_f)
-            kept_f = torch.zeros((t, d), dtype=torch.bool, device=dev)
-            kept_f.scatter_(1, sel_f, True)
+            sel_f = topk_indices(score_f, cap)                 # (S, T, cap)
+            boxes_c = torch.gather(tlwh, 2, sel_f[..., None].expand(
+                -1, -1, -1, 4))
+            conf_c = torch.gather(conf, 2, sel_f)
+            valid_c = torch.gather(valid, 2, sel_f)
+            kept_f = torch.zeros((n_s, t, d), dtype=torch.bool, device=dev)
+            kept_f.scatter_(2, sel_f, True)
             if k > 1:
                 valid = valid & (kept_f | ~emb[:, None])
             else:
                 valid = valid & kept_f
         else:
-            sel_f = torch.arange(d, device=dev).expand(t, d)
+            sel_f = torch.arange(d, device=dev).expand(n_s, t, d)
             boxes_c, conf_c, valid_c = tlwh, conf, valid
         # appearance cadence: crop + embed only every k-th frame
         eidx = torch.arange(0, t, k, device=dev)
         t_e = eidx.shape[0]
-        crops = torch.empty((t_e, cap, ch, cw, 3), dtype=self.handoff,
+        crops = torch.empty((n_s, t_e, cap, ch, cw, 3), dtype=self.handoff,
                             device=dev)
-        for i in range(t_e):
-            img = frames[i * k].to(torch.float32) / 255.0
-            crops[i] = _normalize(crop_resize_bilinear(
-                img, boxes_c[i * k], ch, cw,
-                downsample=self.cfg.crop_downsample),
-                self.handoff)
-        crops = crops.reshape(t_e * cap, ch, cw, 3)
-        sel_e = sel_f[::k]
-        conf_e, valid_e = conf_c[::k], valid_c[::k]
-        flat_slots = (eidx[:, None] * d + sel_e).reshape(t_e * cap)
+        for si in range(n_s):
+            for i in range(t_e):
+                img = frames[si, i * k].to(torch.float32) / 255.0
+                crops[si, i] = _normalize(crop_resize_bilinear(
+                    img, boxes_c[si, i * k], ch, cw,
+                    downsample=self.cfg.crop_downsample), self.handoff)
+        crops = crops.reshape(n_s, t_e * cap, ch, cw, 3)
+        sel_e = sel_f[:, ::k]
+        conf_e, valid_e = conf_c[:, ::k], valid_c[:, ::k]
+        flat_slots = (eidx[:, None] * d + sel_e).reshape(n_s, t_e * cap)
 
         if self.crop_budget is not None and self.crop_budget < t_e * cap:
-            # the B most confident valid crops go to the backbone
-            score = torch.where(valid_e.reshape(-1), conf_e.reshape(-1),
-                                float("-inf"))
-            sel = topk_indices(score, self.crop_budget)
-            feats_b = self.embed_fn(crops[sel])
-            target = flat_slots[sel]
-            feats = torch.zeros((t * d, feats_b.shape[-1]),
+            # each stream's B most confident valid crops go to the backbone
+            score = torch.where(valid_e.reshape(n_s, -1),
+                                conf_e.reshape(n_s, -1), float("-inf"))
+            sel = topk_indices(score, self.crop_budget)          # (S, B)
+            feats_b = self.embed_fn(crops[s_idx, sel].flatten(0, 1))
+            target = flat_slots.gather(1, sel)
+            feats = torch.zeros((n_s, t * d, feats_b.shape[-1]),
                                 dtype=feats_b.dtype, device=dev)
-            feats[target] = feats_b
-            feats = feats.reshape(t, d, -1)
-            kept = torch.zeros(t * d, dtype=torch.bool, device=dev)
-            kept[target] = True
+            feats[s_idx, target] = feats_b.reshape(*sel.shape, -1)
+            feats = feats.reshape(n_s, t, d, -1)
+            kept = torch.zeros((n_s, t * d), dtype=torch.bool, device=dev)
+            kept[s_idx, target] = True
             if k > 1:
-                valid = valid & (kept.reshape(t, d) | ~emb[:, None])
+                valid = valid & (kept.reshape(n_s, t, d) | ~emb[:, None])
             else:
-                valid = valid & kept.reshape(t, d)
+                valid = valid & kept.reshape(n_s, t, d)
         elif cap < d or k > 1:
-            feats_c = self.embed_fn(crops)
-            feats = torch.zeros((t * d, feats_c.shape[-1]),
+            feats_c = self.embed_fn(crops.flatten(0, 1))
+            feats = torch.zeros((n_s, t * d, feats_c.shape[-1]),
                                 dtype=feats_c.dtype, device=dev)
-            feats[flat_slots] = feats_c
-            feats = feats.reshape(t, d, -1)
+            feats[s_idx, flat_slots] = feats_c.reshape(*flat_slots.shape, -1)
+            feats = feats.reshape(n_s, t, d, -1)
         else:
-            feats = self.embed_fn(crops).reshape(t, d, -1)
+            feats = self.embed_fn(crops.flatten(0, 1)).reshape(n_s, t, d, -1)
         return feats, valid
 
     @staticmethod
     def gmc_affines(frames, prev_frame=None):
-        """(T, 2, 3) camera-motion affines of the chunk, estimated on the
-        frames' device; `prev_frame` anchors the first (None: identity)."""
-        anchor = frames[0] if prev_frame is None else prev_frame
+        """(S, T, 2, 3) camera-motion affines of the chunk, estimated on the
+        frames' device in one batched FFT; `prev_frame` (S, H, W, 3)
+        anchors the first (None: identity)."""
+        anchor = frames[:, 0] if prev_frame is None else prev_frame
         return chunk_affines_translation(anchor, frames)
 
-    def associate(self, state, tlwh, conf, feats, valid, affines=None):
-        """The per-frame update over the chunk; `affines` (T, 2, 3) warp
-        the tracks first when GMC is on. Returns (state, outputs with a
-        leading frame axis)."""
+    def associate(self, states, tlwh, conf, feats, valid, affines=None):
+        """The per-frame update over the chunk, all streams at once;
+        `affines` (S, T, 2, 3) warp the tracks first when GMC is on.
+        Returns (states, outputs (S, T, ...))."""
         outs = []
-        for i in range(tlwh.shape[0]):
+        for i in range(tlwh.shape[1]):
             if self.use_gmc:
-                state = apply_gmc(state, affines[i])
+                states = apply_gmc(states, affines[:, i])
             hf = np.bool_(i % self.k_embed == 0) if self.k_embed > 1 \
                 else True
-            state, out = _update_impl(self.cfg, state, tlwh[i], conf[i],
-                                      feats[i], valid[i], has_feats=hf)
+            states, out = _update_impl(self.cfg, states, tlwh[:, i],
+                                       conf[:, i], feats[:, i], valid[:, i],
+                                       has_feats=hf)
             outs.append(out)
-        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return states, {k: torch.stack([o[k] for o in outs], dim=1)
+                        for k in outs[0]}
+
+    def run_streams(self, states, frames, tlwh, conf, valid, affines=None,
+                    prev_frame=None, timing: Optional[dict] = None):
+        """One chunk of S streams: a batched state from
+        `streams.init_stream_states`, inputs with a leading stream axis.
+        With `timing`, the seconds of crop_embed, gmc and associate are
+        added to it (the device synchronised at each boundary)."""
+        stages = StageTimer(timing, frames.device)
+        feats, valid = self.embed(frames, tlwh, conf, valid)
+        stages.mark("crop_embed")
+        if self.use_gmc and affines is None:
+            affines = self.gmc_affines(frames, prev_frame)
+        stages.mark("gmc")
+        out = self.associate(states, tlwh, conf, feats, valid, affines)
+        stages.mark("associate")
+        return out
 
     def __call__(self, state, frames, tlwh, conf, valid, affines=None,
                  prev_frame=None):
-        feats, valid = self.embed(frames, tlwh, conf, valid)
-        if self.use_gmc and affines is None:
-            affines = self.gmc_affines(frames, prev_frame)
-        return self.associate(state, tlwh, conf, feats, valid, affines)
+        """One chunk of one stream: state from `init_tracker_state`,
+        frames (T,H,W,3), tlwh (T,D,4), conf/valid (T,D)."""
+        one = [None if v is None else v[None]
+               for v in (affines, prev_frame)]
+        states, outs = self.run_streams(
+            stack_states([state]), frames[None], tlwh[None], conf[None],
+            valid[None], *one)
+        return unstack_state(states)[0], {k: v[0] for k, v in outs.items()}
 
 
 def make_chunked_tracker(cfg: TrackerConfig, embed_fn, crop_hw,
@@ -423,16 +456,18 @@ class TrackingPipeline:
             fr = self._dev(padded(frames))
             tl = self._dev(padded(tlwh), torch.float32)
             cf = self._dev(padded(conf), torch.float32)
-            feats, vd = self._chunked.embed(fr, tl, cf,
-                                            self._dev(vl, torch.bool))
+            feats, vd = self._chunked.embed(fr[None], tl[None], cf[None],
+                                            self._dev(vl, torch.bool)[None])
             _sync(self.device)
             tb = time.perf_counter()
             affines = self._chunk_affines(frames, fr, s, e, pad) \
                 if self._gmc else None
             tg = time.perf_counter()
-            self.state, outs = self._chunked.associate(self.state, tl, cf,
-                                                       feats, vd, affines)
-            outs = {k: v.cpu().numpy() for k, v in outs.items()}
+            states, outs = self._chunked.associate(
+                stack_states([self.state]), tl[None], cf[None], feats, vd,
+                None if affines is None else affines[None])
+            self.state = unstack_state(states)[0]
+            outs = {k: v[0].cpu().numpy() for k, v in outs.items()}
             tc = time.perf_counter()
             self.timing["crop_embed"] += tb - ta
             self.timing["gmc"] += tg - tb
@@ -458,8 +493,8 @@ class TrackingPipeline:
             affs.extend([np.eye(2, 3, dtype=np.float32)] * pad)
             affines = self._dev(np.stack(affs))
         else:
-            prev = self._dev(frames[s - 1]) if s > 0 else None
-            affines = self._chunked.gmc_affines(fr, prev)
+            prev = self._dev(frames[s - 1])[None] if s > 0 else None
+            affines = self._chunked.gmc_affines(fr[None], prev)[0]
         self.affines.extend(affines[:e - s].cpu().numpy())
         return affines
 

@@ -16,6 +16,7 @@ from ..data.transforms import inference_batch
 from .steps import embed_single, embed_with_flip
 
 
+@torch.inference_mode()
 def extract_embeddings(model, dataset: ReIDDataset, batch_size: int,
                        tta_flip: bool = True, device="cuda") -> torch.Tensor:
     """(len(dataset), D) f32 embeddings on `device`: TTA dual pass with

@@ -147,18 +147,18 @@ class _Int8Matmul(nn.Module):
         wp[:n, :k] = wt.cpu()
         self.register_buffer("wt_pad", wp)
 
-    def acc(self, a: torch.Tensor) -> torch.Tensor:
+    def acc(self, a: torch.Tensor, pad_rows: bool = True) -> torch.Tensor:
+        """`pad_rows`: `a` may have 16 rows or fewer, which torch._int_mm
+        refuses, so 32 zero rows are appended: a pad that does not depend
+        on M, so that a traced batch axis stays symbolic."""
         if a.device.type == "cpu":
             return (a.to(torch.float64) @ self.wt.to(torch.float64).T).to(
                 torch.float32)
         # `a` has K columns, or already the zero-padded width (an im2col)
         m, ka = a.shape
-        mp = max(m, 32)
         kp = self.wt_pad.shape[1]
-        if mp != m or ka != kp:
-            a_p = torch.zeros((mp, kp), dtype=torch.int8, device=a.device)
-            a_p[:m, :ka] = a
-            a = a_p
+        if ka != kp or pad_rows:
+            a = F.pad(a, (0, kp - ka, 0, 32 if pad_rows else 0))
         out = torch._int_mm(a, self.wt_pad.T)
         return out[:m, :self.n].to(torch.float32)
 
@@ -217,7 +217,10 @@ class QConv2d(nn.Module):
         else:
             rows, (b, ho, wo) = _im2col(xq, self.k, self.stride,
                                         self.padding, self.mm.wt_pad.shape[1])
-            acc = self.mm.acc(rows).reshape(b, ho, wo, -1)
+            # more than 16 output pixels an image: enough rows for any
+            # batch of one image or more
+            acc = self.mm.acc(rows, pad_rows=ho * wo <= 16).reshape(
+                b, ho, wo, -1)
         out = acc * self.scale
         if self.bias is not None:
             out = out + self.bias.to(torch.float32)

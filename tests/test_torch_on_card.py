@@ -34,6 +34,14 @@ Tolerances:
     summation order differs.
   * smooth_tracklets: a second card run equal to the first bit for bit,
     and atol = 1e-6 against the CPU (the 0/1 matmuls sum in another order).
+  * int8 streams (every stream's crops in one embed call, the association
+    batched over streams) against each stream's own run on the card: ids
+    and valid identical, tlwh within 1e-4; whether every output is
+    bit-equal is printed, not held (a batched cuBLAS product may take
+    another algorithm than a single one).
+  * the int8 serving artifact (torch.export, K1 and K2 as custom ops)
+    loaded on the card: K1 and K2 launched (counted) and its output equal
+    to the eager int8 embed bit for bit.
 """
 
 import numpy as np
@@ -507,3 +515,106 @@ def test_retrieval_on_card_matches_cpu(cuda):
     assert np.abs(cmc_g - cmc_c).max() <= 1 / 60 + 1e-6
     assert abs(map_g - map_c) <= 1e-2
     np.testing.assert_allclose(j_g.cpu().numpy(), j_c.numpy(), atol=1e-5)
+
+
+def card_int8_embed(dev, crop_hw, seed=0):
+    """A random-init int8 SERes18 embed on `dev` (16 classes), calibrated
+    on noise: fn(crops) -> L2-normalized [feat || logits]."""
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils import quantize as tqz
+
+    torch.manual_seed(seed)
+    model = build_model("seres18", num_classes=16, dtype=torch.bfloat16,
+                        device=dev)
+    calib = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(8, *crop_hw, 3)).astype(np.float32)).to(dev)
+    net = tqz.quantized_model(model, tqz.quantize(model, [calib]))
+
+    def embed(crops):
+        f, lg = net(crops.to(torch.bfloat16))
+        e = torch.cat([f.float(), lg.float()], 1)
+        return e / torch.clamp(e.norm(dim=1, keepdim=True), min=1e-12)
+    return embed
+
+
+def test_int8_streams_on_card_match_single_stream(cuda):
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    from _scenes import build_mot_scene
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.tracking.methods import method_config
+    from reid_tpu_torch.tracking.pipeline import make_chunked_tracker
+    from reid_tpu_torch.tracking.streams import (init_stream_states,
+                                                 make_stream_tracker)
+    from reid_tpu_torch.tracking.tracker import init_tracker_state
+
+    crop, n_s, t, chunk = (64, 32), 3, 16, 8
+    seqs = [build_mot_scene(t_total=t, n_t=4, max_dets=8, h=120, w=160,
+                            seed=s)[:4] for s in range(n_s)]
+    data = [torch.from_numpy(np.stack([q[i] for q in seqs])).to(cuda)
+            for i in range(4)]
+    embed = card_int8_embed(cuda, crop)
+    cfg = method_config("strongsort", max_tracks=16, max_dets=8,
+                        crop_hw=crop, n_init=2)
+    run = make_stream_tracker(cfg, embed, crop, chunk=chunk, device=cuda)
+    single = make_chunked_tracker(cfg, embed, crop, chunk=chunk)
+    with full_f32(), torch.inference_mode():
+        st = init_stream_states(n_s, 16, 528, device=cuda)
+        reset_launch_counts()
+        outs = []
+        for s in range(0, t, chunk):
+            st, o = run(st, *[x[:, s:s + chunk] for x in data])
+            outs.append(o)
+        counts = launch_counts()
+        got = {k: torch.cat([o[k] for o in outs], 1).cpu() for k in outs[0]}
+        bit_equal = []
+        for si in range(n_s):
+            one = init_tracker_state(16, 528, device=cuda)
+            ref = []
+            for s in range(0, t, chunk):
+                one, o = single(one, *[x[si, s:s + chunk] for x in data])
+                ref.append(o)
+            want = {k: torch.cat([o[k] for o in ref]).cpu() for k in ref[0]}
+            assert torch.equal(got["valid"][si], want["valid"]), si
+            assert torch.equal(got["ids"][si], want["ids"]), si
+            v = want["valid"]
+            assert v.sum() > 20, si
+            np.testing.assert_allclose(got["tlwh"][si][v].numpy(),
+                                       want["tlwh"][v].numpy(), atol=1e-4)
+            bit_equal.append(all(torch.equal(got[k][si], want[k])
+                                 for k in want))
+    # one embed call a chunk for all streams: 2 K1 and 4 K2 launches each
+    assert counts[tq.NAME] == 2 * (t // chunk), counts
+    assert counts[tqb.NAME] == 4 * (t // chunk), counts
+    print(f"streams bit-equal to their single-stream runs: {bit_equal}")
+
+
+def test_int8_artifact_on_card_launches_kernels(cuda, tmp_path):
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.eval.serving import (calibrate_serving_qstate,
+                                             export_reid_artifact,
+                                             load_serving_fn, make_embed_fn)
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils.quantize import quantized_model
+
+    torch.manual_seed(0)
+    model = build_model("seres18", num_classes=16, device=cuda)
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (5, 64, 32, 3)).astype(np.float32)).to(cuda)
+    path = str(tmp_path / "reid_int8.pt2")
+    with full_f32():
+        qs = calibrate_serving_qstate(model, imgs[:4])
+        export_reid_artifact(model, path, 64, 32, qstate=qs)
+        loaded = load_serving_fn(path)
+        eager = make_embed_fn(quantized_model(model, qs))
+        with torch.inference_mode():
+            for b in (1, 3, 5):
+                want = eager(imgs[:b])
+                reset_launch_counts()
+                got = loaded(imgs[:b])
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                assert counts[tq.NAME] == 2 and counts[tqb.NAME] == 4, counts
+                assert torch.equal(got, want), (b, (got - want).abs().max())

@@ -105,6 +105,19 @@ def test_jaccard_distance_dispatcher_matches_jax(option):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_jaccard_distance_refuses_ivf():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tr.jaccard_distance(torch.zeros((30, 4)), search_option="ivf")
+def test_jaccard_distance_ivf_matches_jax(monkeypatch):
+    """search_option="ivf" is not refused: the dispatcher takes the IVF
+    ranking with `choose_search`'s nlist and nprobe, as the JAX package's
+    does (the port's k-means starting from JAX's rows, which
+    `jax.random.choice` draws and PyTorch cannot reproduce)."""
+    import jax
+
+    from reid_tpu_torch.ops import kmeans as tkm
+    monkeypatch.setattr(tkm, "init_indices", lambda n, k, generator=None:
+                        torch.tensor(np.asarray(jax.random.choice(
+                            jax.random.PRNGKey(0), n, (k,),
+                            replace=False))))
+    feats = clustered(np.random.default_rng(5), 6, 10, 8, 0.3)
+    got, want = both(jr.jaccard_distance, tr.jaccard_distance, feats, k1=10,
+                     k2=3, search_option="ivf")
+    np.testing.assert_allclose(got, want, atol=1e-5)
