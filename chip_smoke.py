@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 6 min of command
+    python3 chip_smoke.py             # on one card, about 8.5 min of command
     python3 chip_smoke.py --profile   # the same, tracing the track runs,
                                       # a chunk of each stream operating
                                       # point and the retrieval run
@@ -180,7 +180,32 @@ Phases, one JSON line each:
               counted (2 and 4 a call for int8); then `inference
               --artifact` (f32, equal to the in-process model) and the
               int8 artifact with `--attributes_mat` (a .mat written here)
-              on an in-memory split of 64 queries and 256 gallery images.
+              on an in-memory split of 64 queries and 256 gallery images;
+ 13. train    `cli.train_main` on a synthetic Market-shaped JPEG
+              tree written to a temporary directory (751 ids of 17
+              images, two colours an id, 1 query and 2 gallery images an
+              id): SERes18-IBN in bf16 at 256x128, 751 classes, --bs 64
+              --instance 4, two epochs, --export. The step period on the
+              device's clock (CUDA events between steps; median, 5th and
+              95th percentile, min, max), images/s, the host's wait on
+              the loader, the DCC seeding's seconds, peak memory and the
+              logged losses, which must fall; the `.npz` checkpoint read
+              back by `inference_main --ckpt`, the artifact against
+              serving in process (cosine >= 0.999);
+ 14. train step card vs cpu: one f32 step from one state on the card and
+              on the CPU, SERes18 at 256x128, 751 classes, a batch of 16,
+              the same augmentation draws, TF32 off; the limits are in
+              `phase_train_card_vs_cpu`;
+ 15. continual `produce_pseudo_data` on a synthetic DukeMTMC-sized target
+              (16,522 images of 702 ids at 256x128, on disk) with the
+              dense search plan, so K6 ranks and K7 sums (the "auto" plan
+              takes the top-S min-sum above 15,000 rows), then
+              `train_continual` for one epoch of the merged split: the
+              clusters, the Jaccard's seconds, peak memory, and the K6/K7
+              launches zeroed just before and read just after
+              (`launches_continual_run` in their rows); last, five train
+              steps under torch.profiler (conv/GEMM against other device
+              time, launches a step).
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -1938,6 +1963,458 @@ def phase_artifact(gallery, tmp, dev):
     return res
 
 
+# the training operating point: Market-1501's train split (751 ids; its
+# 12,936 images as 17 an id), SERes18-IBN at 256x128 in bf16, PK batches
+# of 64 = 16 ids x 4, two epochs
+TRAIN_IDS, TRAIN_PER_ID, TRAIN_EPOCHS = 751, 17, 2
+# the continual phase's target: DukeMTMC-reID's train split, 16,522 images
+# of 702 ids (376 ids of 24 images and 326 of 23)
+DUKE_IDS, DUKE_COUNTS = 702, [24] * 376 + [23] * 326
+# the card-vs-CPU step: SERes18 at 256x128 with 751 classes, a batch of 16
+CARD_CPU_BATCH = 16
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """module.name replaced by wrap(module.name) inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, wrap(old))
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+class TrainClock:
+    """Wraps `make_train_step` and `make_train_loader` as `train_cnn` calls
+    them: a CUDA event after each step (consecutive events give the step
+    period on the device's clock without a synchronisation), the host
+    seconds each step waited for its batch, the epoch of each step, the
+    first batches of the run (kept for a later trace) and what
+    `train_cnn` was called with and returned."""
+
+    def __init__(self, keep_batches=8):
+        self.events, self.waits, self.epochs = [], [], []
+        self.epoch, self.keep, self.batches = -1, keep_batches, []
+        self.calls = []
+
+    def make_step(self, make):
+        import torch
+
+        def make_step(*a, **k):
+            step = make(*a, **k)
+
+            def timed(state, batch):
+                out = step(state, batch)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                self.epochs.append(self.epoch)
+                return out
+            return timed
+        return make_step
+
+    def make_loader(self, make):
+        clock = self
+
+        class Timed:
+            def __init__(self, loader):
+                self.loader = loader
+
+            def __len__(self):
+                return len(self.loader)
+
+            def __iter__(self):
+                it = iter(self.loader)
+                while True:
+                    t = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    clock.waits.append(time.perf_counter() - t)
+                    if len(clock.batches) < clock.keep:
+                        clock.batches.append(batch)
+                    yield batch
+
+        def make_loader(*a, **k):
+            self.epoch += 1
+            return Timed(make(*a, **k))
+        return make_loader
+
+    def train_cnn(self, fn):
+        def train_cnn(cfg, dataset, **kw):
+            state, losses = fn(cfg, dataset, **kw)
+            self.calls.append((cfg, dataset, losses))
+            return state, losses
+        return train_cnn
+
+    def step_ms(self):
+        """Step periods (ms) within each epoch, the run's first step left
+        out (it waits on the first batch and the first cuDNN plans)."""
+        self.events[-1].synchronize()
+        return [a.elapsed_time(b) for a, b, ea, eb in zip(
+            self.events, self.events[1:], self.epochs, self.epochs[1:])
+            if ea == eb]
+
+
+def step_profile(state, cfg, batches, reps=5):
+    """`reps` train steps on kept batches under torch.profiler, after two
+    untraced ones and one under torch.cuda's sync debug mode "error" (it
+    fails if the step reads anything back or copies from the host): device
+    ms a step in convolution and GEMM kernels
+    (cuDNN, cuBLAS, CUTLASS) and in the rest, launches a step, and the
+    host ms a step (the wall clock of the traced steps, which the trace
+    slows); each kernel's share to chiprun_out/profile_train_step.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from reid_tpu_torch.train.steps import make_train_step
+
+    step = make_train_step(cfg, generator=torch.Generator("cuda")
+                           .manual_seed(7))
+    batches = [{k: b[k] for k in ("images", "labels")} for b in batches]
+    for b in batches[:2]:
+        step(state, b)
+    torch.cuda.synchronize()
+    # one more step that must read nothing back nor copy from the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batches[2 % len(batches)])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            step(state, batches[(2 + i) % len(batches)])
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    heavy = ("conv", "cudnn", "gemm", "xmma", "cutlass", "wgrad", "dgrad",
+             "sm90", "nchwToNhwc", "nhwcToNchw")
+    split = {"conv_gemm_ms": 0.0, "other_ms": 0.0}
+    launches = 0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    for e in kernels:
+        key = "conv_gemm_ms" if any(h in e.key.lower() for h in heavy) \
+            else "other_ms"
+        split[key] += e.self_device_time_total / 1e3 / reps
+        launches += e.count
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile_train_step.txt"), "w") as f:
+        f.write(f"{reps} train steps, device ms a step and launches a "
+                "step by kernel\n")
+        for e in kernels:
+            f.write(f"{e.self_device_time_total / 1e3 / reps:10.4f} ms "
+                    f"{e.count / reps:8.1f}x  {e.key[:140]}\n")
+    return dict(split, host_syncs_in_step=0, launches_per_step=launches / reps,
+                device_ms_per_step=split["conv_gemm_ms"] + split["other_ms"],
+                traced_wall_ms_per_step=wall)
+
+
+def phase_train(tmp):
+    """`cli.train_main` on a synthetic Market-shaped tree on the card: two
+    epochs of SERes18-IBN bf16 at 256x128, 751 classes, --bs 64
+    --instance 4, then --export; the step period on the device's clock,
+    images/s, the host's wait on the loader, peak memory and the logged
+    losses (which must fall); the `.npz` checkpoint read back by
+    `inference_main --ckpt`, the artifact against serving in process.
+    Returns what the continual phase starts from: (state, cfg, source
+    dataset, kept batches)."""
+    import copy
+    import statistics
+
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.data.datasets import write_synthetic_tree
+    from reid_tpu_torch.eval.serving import load_serving_fn, make_embed_fn
+    from reid_tpu_torch.train import image_train
+    from reid_tpu_torch.utils.flax_bridge import load_npz
+
+    market = os.path.join(tmp, "market")
+    t0 = time.perf_counter()
+    write_synthetic_tree(market, "market1501", TRAIN_IDS, TRAIN_PER_ID,
+                         query_per_id=1, gallery_per_id=2)
+    data_s = time.perf_counter() - t0
+    pt2, ckpt_dir = os.path.join(tmp, "reid.pt2"), os.path.join(tmp, "ckpt")
+    clock = TrainClock()
+    seed_s = []
+
+    def timed_seed(fn):
+        def seed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seed_s.append(time.perf_counter() - t)
+            return out
+        return seed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(image_train, "make_train_step", clock.make_step), \
+            patched(image_train, "make_train_loader", clock.make_loader), \
+            patched(image_train, "train_cnn", clock.train_cnn), \
+            patched(image_train, "seed_dcc_luts", timed_seed):
+        state = cli.train_main(
+            ["--root", market, "--epochs", str(TRAIN_EPOCHS), "--bs", "64",
+             "--instance", "4", "--export", pt2], device="cuda",
+            ckpt_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg, dataset, losses = clock.calls[0]
+    steps = clock.step_ms()
+    med = statistics.median(steps)
+    q = statistics.quantiles(steps, n=20)
+    n_steps = len(clock.events)
+    waits = clock.waits[1:]
+    assert len(losses) >= 2 and all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    for p in state.model.parameters():
+        assert bool(torch.isfinite(p).all())
+
+    npz = image_train.checkpoint_path(ckpt_dir, "market1501")
+    assert load_npz(npz)["params"]["classifier"]["kernel"].shape == \
+        (512, TRAIN_IDS)
+    cmc, mean_ap = cli.inference_main(["--root", market, "--ckpt", npz,
+                                       "--bs", "64"], device="cuda")
+    assert np.all(np.isfinite(cmc)) and 0.0 < mean_ap <= 1.0
+    x = clock.batches[0]["images"][:16].to(torch.float32)
+    want = make_embed_fn(state.model)(x)
+    got = load_serving_fn(pt2)(x)
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float())
+    assert float(cos.min()) >= 0.999, cos.min()
+    emit("train seres18 bf16", ids=TRAIN_IDS, images=len(dataset),
+         epochs=TRAIN_EPOCHS, batch=64, steps=n_steps, data_s=data_s,
+         wall_s=wall, dcc_seed_s=seed_s,
+         steps_s=sum(steps) / 1e3, step_ms_median=med, step_ms_p5=q[0],
+         step_ms_p95=q[-1],
+         step_ms_min=min(steps), step_ms_max=max(steps),
+         images_per_s=64 * 1e3 / med,
+         loader_wait_ms_median=statistics.median(waits) * 1e3,
+         loader_wait_share=sum(waits) / max(sum(steps) / 1e3, 1e-9),
+         peak_mem_gb=peak / 1e9, loss_first=losses[0], loss_last=losses[-1],
+         losses=losses, ckpt_reload_cmc1=float(cmc[0]),
+         ckpt_reload_mAP=mean_ap,
+         artifact_min_cosine=float(cos.min()),
+         artifact_bit_equal=bool(torch.equal(got, want)))
+    return state, cfg, dataset, copy.deepcopy(state), clock.batches
+
+
+def phase_train_card_vs_cpu():
+    """One f32 train step from one state on the card and on the CPU:
+    SERes18 at 256x128, 751 classes, a batch of 16 (4 ids x 4) of uint8
+    images under the same augmentation draws, TF32 off. The largest
+    relative differences of the loss (1e-4), the BatchNorm statistics,
+    the centers and the DCC tables (1e-3 of each tensor's largest
+    magnitude); the gradient (Adam's first moment, 0.1 g after one step)
+    within 1e-3 of its norm (the two sum each convolution in their own
+    order); the parameter update at a cosine >= 0.9994 and within 3.5% of
+    its norm: Adam's first step moves each element by lr g / (|g| + 1e-8),
+    a sign, so elements whose gradient is rounding noise step opposite
+    ways. Two card runs read a cosine of 0.999467 and 3.27% of the
+    update's norm at this batch (tests/test_torch_train_step.py holds
+    0.9995 and 3% at 64x32, where it reads 1.7%); the limits sit just
+    above. The gradient's limit is what tells a wrong step apart."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from reid_tpu_torch.data.transforms import augment_draws
+    from reid_tpu_torch.losses import DCCState
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.train.state import create_train_state
+    from reid_tpu_torch.train.steps import make_train_step
+    from reid_tpu_torch.utils.flax_bridge import (flax_variables,
+                                                  load_flax_variables)
+
+    b, c = CARD_CPU_BATCH, N_CLASSES
+    cfg = Config(model=ModelConfig(num_classes=c, dtype="float32"),
+                 train=TrainConfig(batch_size=b, num_instances=4))
+    variables = flax_variables(build_model(
+        "seres18", c, dtype=torch.float32, device="cpu",
+        generator=torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    lut = rng.normal(size=(2, c, c)).astype(np.float32)
+    lut /= np.linalg.norm(lut, axis=2, keepdims=True)
+    images = rng.integers(0, 256, (b, 256, 128, 3), dtype=np.uint8)
+    labels = np.repeat(np.arange(0, 4 * 37, 37), 4).astype(np.int32)
+    draws = augment_draws(torch.Generator().manual_seed(1), b, 256, 128,
+                          device="cpu")
+    out = {}
+    with full_f32():
+        for dev in ("cpu", "cuda"):
+            model = build_model("seres18", c, dtype=torch.float32,
+                                device=dev)
+            load_flax_variables(model, variables)
+            state = create_train_state(model, cfg, 100,
+                                       torch.Generator().manual_seed(2))
+            state.loss_state = state.loss_state._replace(dcc=DCCState(
+                *(torch.from_numpy(t).to(dev) for t in lut)))
+            start = [p.detach().clone() for p in model.parameters()]
+            step = make_train_step(cfg)
+            t0 = time.perf_counter()
+            state, m = step(state, {
+                "images": torch.from_numpy(images).to(dev),
+                "labels": torch.from_numpy(labels).to(dev),
+                "aug_draws": {k: v.to(dev) for k, v in draws.items()}})
+            loss = float(m["loss"])
+            out[dev] = dict(
+                loss=loss, s=time.perf_counter() - t0,
+                mu=torch.cat([t.ravel() for t in state.opt_state["mu"]])
+                .cpu().double(),
+                update=torch.cat([(p.detach() - s).ravel() for p, s in zip(
+                    model.parameters(), start)]).cpu().double(),
+                stats=[t.cpu() for t in model.buffers()],
+                centers=state.loss_state.centers.cpu(),
+                dcc=[t.cpu() for t in state.loss_state.dcc])
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+    cpu, card = out["cpu"], out["cuda"]
+    u_c, u_g = cpu["update"], card["update"]
+    res = dict(
+        loss_card=card["loss"], loss_cpu=cpu["loss"],
+        loss_rel=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+        grad_rel_norm=float((card["mu"] - cpu["mu"]).norm()
+                            / cpu["mu"].norm()),
+        update_cosine=float(u_g @ u_c / (u_g.norm() * u_c.norm())),
+        update_rel_norm=float((u_g - u_c).norm() / u_c.norm()),
+        params_max_abs_diff=float((u_g - u_c).abs().max()),
+        batch_stats_rel=max(rel(a, b) for a, b in zip(card["stats"],
+                                                      cpu["stats"])),
+        centers_rel=rel(card["centers"], cpu["centers"]),
+        dcc_rel=max(rel(a, b) for a, b in zip(card["dcc"], cpu["dcc"])),
+        cpu_step_s=cpu["s"])
+    emit("train step card vs cpu", batch=b, classes=c, hw=[256, 128], **res)
+    assert res["loss_rel"] <= 1e-4, res
+    assert res["grad_rel_norm"] <= 1e-3, res
+    assert res["update_cosine"] >= 0.9994 and \
+        res["update_rel_norm"] <= 0.035, res
+    assert max(res["batch_stats_rel"], res["centers_rel"],
+               res["dcc_rel"]) <= 1e-3, res
+
+
+def phase_continual(state, cfg, source, tmp):
+    """`produce_pseudo_data` on a synthetic DukeMTMC-sized target (16,522
+    images of 702 ids at 256x128, on disk), dense search plan (K6 ranks,
+    K7 sums), then `train_continual` for one epoch over the merged split;
+    K6/K7 launches zeroed just before and read just after. Then K6's first
+    query block and a 1,024-row slab of K7's min-sum, as the run computed
+    them, against their plain versions on the run's own operands, at phase
+    9's tolerances; and the Jaccard again with the default "auto" plan,
+    timed and held against the dense one. Returns the launch counts and
+    each kernel's check on this path."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.config import RetrievalConfig
+    from reid_tpu_torch.data.dataset import ReIDDataset
+    from reid_tpu_torch.data.datasets import (build_dataset,
+                                              write_synthetic_tree)
+    from reid_tpu_torch.ops import _lib, rerank
+    from reid_tpu_torch.ops import distance as dist
+    from reid_tpu_torch.train import image_train
+
+    duke = os.path.join(tmp, "duke")
+    t0 = time.perf_counter()
+    write_synthetic_tree(duke, "dukemtmc", DUKE_IDS, DUKE_COUNTS,
+                         num_cams=8, seed=1)
+    raw = build_dataset("dukemtmc", duke, verbose=False)
+    target = ReIDDataset(raw.train, raw.num_train_pids, 256, 128)
+    data_s = time.perf_counter() - t0
+    cfg = cfg.replace(retrieval=RetrievalConfig(search_option="dense"))
+    jac_s, jac_args, seen = [], [], {}
+
+    def timed_jaccard(fn):
+        def jaccard(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            jac_s.append(time.perf_counter() - t)
+            jac_args.append((a, k))
+            return out
+        return jaccard
+
+    def first_call(name, rows):
+        """The kernel's operands at its first call and the first `rows`
+        rows of its output, copied before the caller reuses it in place
+        (the min-sum's output becomes J)."""
+        def wrap(fn):
+            def kernel(x, y):
+                out = fn(x, y)
+                if name not in seen:
+                    seen[name] = (x[:rows], y, out[:rows].clone())
+                return out
+            return kernel
+        return wrap
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(rerank, "jaccard_distance", timed_jaccard), \
+            patched(dist, "sqeuclidean", first_call("sqeuclidean", 1024)), \
+            patched(dist, "l1", first_call("l1", 1024)):
+        records, centroids, k = image_train.produce_pseudo_data(
+            state, target, cfg)
+    torch.cuda.synchronize()
+    pseudo_s = time.perf_counter() - t0
+    # includes V (N x N f32), held past the call for the check below
+    pseudo_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    state, losses = image_train.train_continual(
+        cfg, state, source, records, centroids, k, epochs=1,
+        ckpt_dir=os.path.join(tmp, "ckpt_continual"))
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    continual_s = time.perf_counter() - t0
+
+    checks = {}
+    with full_f32(), torch.inference_mode():
+        for name, plain, tol in (("sqeuclidean", dist.sqeuclidean_plain,
+                                  1e-4),
+                                 ("l1", dist.l1_plain, 1e-5)):
+            x, y, got = seen.pop(name)
+            want = plain(x, y)
+            err = (got - want).abs()
+            assert bool((err <= tol + tol * want.abs()).all()), \
+                (name, err.max())
+            checks[name] = dict(site=[x.shape[0], y.shape[0], x.shape[1]],
+                                max_abs_err=err.max().item())
+            del x, y, got, want, err
+        torch.cuda.empty_cache()
+        (feats,), kw = jac_args.pop()
+        dense = rerank.jaccard_distance(feats, **kw)
+        kw = dict(kw, search_option="auto")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        auto = rerank.jaccard_distance(feats, **kw)
+        torch.cuda.synchronize()
+        auto_s = time.perf_counter() - t
+        auto_vs_dense = (auto - dense).abs().max().item()
+        del feats, dense, auto
+    torch.cuda.empty_cache()
+    n = len(target)
+    emit("continual pseudo-label", target_images=n, target_ids=DUKE_IDS,
+         data_s=data_s, clusters=k, pseudo_images=len(records),
+         jaccard_s=jac_s, jaccard_auto_plan_s=auto_s,
+         auto_vs_dense_max_abs=auto_vs_dense, pseudo_label_s=pseudo_s,
+         dense_jaccard_gb=n * n * 4 / 1e9, peak_mem_gb_pseudo=pseudo_peak /
+         1e9, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         continual_s=continual_s, continual_losses=losses,
+         classes=int(state.model.classifier.weight.shape[0]),
+         launches=counts, kernel_checks=checks)
+    assert k >= 0.2 * DUKE_IDS and len(jac_s) == 1
+    assert all(np.isfinite(losses))
+    # the two plans sum the same min-sums in their own orders
+    assert auto_vs_dense <= 1e-4, auto_vs_dense
+    for name in ("sqeuclidean", "l1"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    return counts, checks
+
+
 def set_launches(rows, sites):
     """Each K1/K2 row's launches at its call site in one run of its path."""
     for row in rows:
@@ -2020,9 +2497,31 @@ def main():
     phase_embed_retrieval(query)
     with tempfile.TemporaryDirectory() as tmp:
         phase_artifact(gallery, tmp, dev)
+    del query, gallery
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        state, cfg, source, trained, batches = phase_train(tmp)
+        phase_train_card_vs_cpu()
+        counts, checks = phase_continual(state, cfg, source, tmp)
+        del state, source
+        torch.cuda.empty_cache()
+        for row in dist_rows:
+            kname = row["name"].split()[0]
+            row["launches_continual_run"] = counts.get(kname, 0)
+            row["max_abs_err_continual_run"] = checks[kname]["max_abs_err"]
+            row["site_continual_run"] = checks[kname]["site"]
+        # traced last: a trace slows the process's later launches
+        emit("train step profile", **step_profile(trained, cfg, batches))
+        del trained, batches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = {"kernels": [{k: row[k] for k in keys} for row in rows]}
+    # K6/K7 on the continual run: its launches, and each held against its
+    # plain version at the shape the run gave it
+    CONTINUAL_KEYS = ("launches_continual_run", "max_abs_err_continual_run",
+                      "site_continual_run")
+    kernels = {"kernels": [
+        {k: row[k] for k in keys + CONTINUAL_KEYS if k in row}
+        for row in rows]}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"results": RESULTS, **kernels}, f, indent=1)

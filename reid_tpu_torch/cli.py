@@ -1,8 +1,9 @@
-"""Command-line entries of the port: tracking and retrieval evaluation.
+"""Command-line entries of the port: tracking, retrieval evaluation and
+training.
 
-Counterparts of `reid_tpu/cli.py:track_main` and `inference_main` with the
-same flags. Both run on the card; `device="cpu"` runs the same program on
-the CPU with the kernels' plain versions.
+Counterparts of `reid_tpu/cli.py:track_main`, `inference_main` and
+`train_main` with the same flags. Each runs on the card; `device="cpu"`
+runs the same program on the CPU with the kernels' plain versions.
 
   * `track_main`: a frame directory, video file or webcam index in ->
     detections (a MOT det file with `--detections`, else the built-in
@@ -22,7 +23,16 @@ the CPU with the kernels' plain versions.
     by `eval.serving.export_reid_artifact` (torch.export, f32 or int8) in
     its place, where the JAX package reads StableHLO. `--search_option
     ivf` ranks through the IVF index, `--attributes_mat` adds the Market
-    attribute prior. The port's retrieval runs on one device.
+    attribute prior. The classifier's width is read from `--ckpt`. The
+    port's retrieval runs on one device.
+  * `train_main`: SERes18-IBN on a Market-style train split (PK batches,
+    device augmentation, the hybrid loss, Adam + center SGD, DCC tables,
+    `--xbm`), the `.npz` checkpoint
+    `checkpoint/cnn_net_checkpoint_{dataset}.npz` (where the JAX package
+    writes orbax), `--ckpt` warm start, `--continual` pseudo-labelling of
+    `--target_dataset` and continual training, `--export` a `.pt2`
+    serving artifact. One device; `--renorm` (BatchRenorm) and other
+    backbones are not ported.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
@@ -30,6 +40,8 @@ the CPU with the kernels' plain versions.
         --int8 --save_txt out.txt --save_vid annotated/ --gt gt.txt
     python -m reid_tpu_torch.image_reid_inference --root market1501 \
         --ckpt model.npz
+    python -m reid_tpu_torch.image_reid_train --root market1501 \
+        --epochs 60 --export reid.pt2
 """
 
 from __future__ import annotations
@@ -471,12 +483,18 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
             from .eval.serving import load_serving_fn
             embed_fn = load_serving_fn(args.artifact)
         else:
-            model = build_model(cfg.model.backbone, num_classes=num_pids,
+            variables, num_classes = None, num_pids
+            if args.ckpt:
+                from .utils.flax_bridge import load_flax_variables, load_npz
+                variables = load_npz(args.ckpt)
+                # a continual run's checkpoint has a wider classifier
+                num_classes = variables["params"]["classifier"][
+                    "kernel"].shape[1]
+            model = build_model(cfg.model.backbone, num_classes=num_classes,
                                 num_cams=cfg.model.num_cams,
                                 dtype=torch.float32, device=device)
-            if args.ckpt:
-                from .utils.flax_bridge import load_flax_variables
-                load_flax_variables(model, args.ckpt)
+            if variables is not None:
+                load_flax_variables(model, variables)
         if args.int8:
             from .eval.serving import make_int8_embed_fn
             # the eval loader's first batch of min(bs, 32), wrap-padded
@@ -496,6 +514,98 @@ def inference_main(argv=None, device: Optional[str] = "cuda"):
     """Retrieval evaluation (ref image_reid_inference.py main :161-320);
     returns (CMC, mAP)."""
     return inference(argv, device)
+
+
+def _train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("image_reid_train")
+    p.add_argument("--root", default="data")
+    p.add_argument("--dataset", default="market1501",
+                   choices=["market1501", "dukemtmc", "veri"])
+    p.add_argument("--backbone", default="seres18")
+    p.add_argument("--bs", type=int, default=64)
+    p.add_argument("--epochs", type=int, default=60)
+    p.add_argument("--instance", type=int, default=4)
+    p.add_argument("--margin", type=float, default=0.0)
+    p.add_argument("--epsilon", type=float, default=0.0)
+    p.add_argument("--center_lamda", type=float, default=5e-4)
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--cam_factor", type=float, default=-1.0)
+    p.add_argument("--renorm", action="store_true",
+                   help="BatchRenorm: not ported, refused")
+    p.add_argument("--xbm", action="store_true")
+    p.add_argument("--continual", action="store_true")
+    p.add_argument("--target_dataset", default="dukemtmc")
+    p.add_argument("--target_root", default="data")
+    p.add_argument("--eps", type=float, default=0.55)
+    p.add_argument("--height", type=int, default=0,
+                   help="override input height (0 = dataset default)")
+    p.add_argument("--width", type=int, default=0)
+    p.add_argument("--ckpt", default="",
+                   help="warm start: .npz of the flax variable tree")
+    p.add_argument("--export", default="",
+                   help="write the serving artifact (.pt2, torch.export) "
+                        "here after training (ref to_onnx, "
+                        "train_prepare.py:14-47)")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def _train_cfg(args, num_classes: int):
+    """The training run's configuration (`reid_tpu/cli.py:_base_cfg` for
+    the CNN backbones)."""
+    from .config import (Config, DataConfig, LossConfig, ModelConfig,
+                         RetrievalConfig, TrainConfig)
+
+    sizes = {"market1501": (256, 128), "dukemtmc": (256, 128),
+             "veri": (224, 224)}
+    h, w = sizes.get(args.dataset, (256, 128))
+    h, w = args.height or h, args.width or w
+    n_cams = {"market1501": 6, "dukemtmc": 8, "veri": 20}.get(args.dataset, 6)
+    return Config(
+        model=ModelConfig(backbone=args.backbone, num_classes=num_classes,
+                          num_cams=n_cams, cam_factor=args.cam_factor),
+        loss=LossConfig(margin=args.margin, center_lamda=args.center_lamda,
+                        epsilon=args.epsilon, tao=args.temperature,
+                        xbm=args.xbm),
+        train=TrainConfig(batch_size=args.bs, num_instances=args.instance,
+                          epochs=args.epochs, seed=args.seed),
+        data=DataConfig(dataset=args.dataset, root=args.root, height=h,
+                        width=w),
+        retrieval=RetrievalConfig(dbscan_eps=args.eps))
+
+
+def train_main(argv=None, device: Optional[str] = "cuda",
+               ckpt_dir: str = "checkpoint"):
+    """Image-ReID training (ref image_reid_train.py main :595-697) with the
+    continual branch; returns the train state. The checkpoint goes to
+    `ckpt_dir`."""
+    p = _train_parser()
+    args = p.parse_args(argv)
+    if args.renorm:
+        p.error("--renorm: BatchRenorm is not ported")
+    from .data.dataset import ReIDDataset
+    from .data.datasets import build_dataset
+    from .train.image_train import (produce_pseudo_data, train_cnn,
+                                    train_continual)
+
+    raw = build_dataset(args.dataset, args.root)
+    cfg = _train_cfg(args, raw.num_train_pids)
+    h, w = cfg.data.height, cfg.data.width
+    dataset = ReIDDataset(raw.train, raw.num_train_pids, h, w)
+    state, _ = train_cnn(cfg, dataset, use_xbm=args.xbm, ckpt=args.ckpt,
+                         ckpt_dir=ckpt_dir, device=device)
+    if args.continual:
+        t_raw = build_dataset(args.target_dataset, args.target_root)
+        target = ReIDDataset(t_raw.train, t_raw.num_train_pids, h, w)
+        records, centroids, k = produce_pseudo_data(state, target, cfg)
+        state, _ = train_continual(cfg, state, dataset, records, centroids,
+                                   k, ckpt_dir=ckpt_dir)
+    if args.export:
+        from .eval.serving import export_reid_artifact
+        export_reid_artifact(state.model.eval(), args.export, h, w)
+        print(f"serving artifact -> {args.export}")
+    print("training complete")
+    return state
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Configuration of the port.
 
-Own copies of `reid_tpu/config.py`'s `TrackerConfig` and `RetrievalConfig`
-(fields, defaults and their notes unchanged; tests hold them equal), and of
-the fields of `ModelConfig`, `TrainConfig` and `DataConfig` that the
-retrieval CLI reads, so that the port imports nothing of the JAX package.
+Own copies of `reid_tpu/config.py`'s `TrackerConfig`, `RetrievalConfig`
+and `LossConfig` (fields, defaults and their notes unchanged; tests hold
+them equal), and of the fields of `ModelConfig`, `TrainConfig` and
+`DataConfig` that the retrieval CLI and the training slice read, so that
+the port imports nothing of the JAX package.
 The measured numbers in the notes were taken on a TPU v5e by the JAX
 package.
 """
@@ -127,11 +128,48 @@ class ModelConfig:
     backbone: str = "seres18"          # factory key (models/factory.py)
     num_classes: int = 751             # Market1501 train ids
     num_cams: int = 6
+    feat_dim: int = 512
+    cam_factor: float = -1.0           # scale of learnable per-camera bias
+                                       # (ref SERes18_IBN.py:198,248)
+    dtype: str = "bfloat16"            # compute dtype; params always float32
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    margin: float = 0.0                # 0 => WeightedRegularizedTriplet
+                                       # (ref hybrid_losses.py:23-26)
+    center_lamda: float = 5e-4         # ref image_reid_train.py lamda
+    cluster_factor: float = 1.0
+    smoothing: float = 0.1
+    epsilon: float = 0.0               # poly-loss epsilon
+    tao: float = 1.0                   # CE temperature
+    dcc_scalar: float = 20.0           # ref center_contrastive_losses.py:72
+    dcc_momentum: float = 0.1
+    dcc_weight: float = 0.25
+    use_dcc: bool = True
+    use_ce: bool = False               # HybridLoss omits plain CE; Weighted adds it
+    xbm: bool = False
+    xbm_size_mult: int = 4             # memory K = mult * batch (ref XBM.py usage)
+    # XBM warm-up gate: the plain CNN XBM trainer starts the memory at
+    # epoch > 25 (ref image_reid_train_xbm.py:88); the SIE (side-info
+    # transformer) XBM trainer starts at epoch > 10 (ref :167). The CLI sets
+    # 10 for vit/swin backbones.
+    xbm_start_epoch: int = 25
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     batch_size: int = 64               # also the eval batch
+    num_instances: int = 4             # K of PK sampling (ref --instance)
+    epochs: int = 60
+    lr: float = 3.5e-4                 # Adam when PK sampling (ref :51-56)
+    center_lr: float = 0.5
+    weight_decay: float = 5e-4
+    warmup_epochs: int = 10            # ref WarmUpCosineScheduler (train_prepare.py:84)
+    hold_epochs: int = 30
+    eta_min: float = 7e-7
+    grad_clip: float = 10.0
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +178,9 @@ class DataConfig:
     root: str = "data"
     height: int = 256                  # ref data_transforms.py Market sizes
     width: int = 128
+    pad: int = 10
+    random_erasing_prob: float = 0.5
+    flip_prob: float = 0.5
     mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
 
@@ -168,6 +209,7 @@ class RetrievalConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     retrieval: RetrievalConfig = dataclasses.field(

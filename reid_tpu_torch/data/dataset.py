@@ -1,23 +1,25 @@
 """ReIDDataset — host-side record store with an image cache.
 
-Counterpart of `reid_tpu/data/dataset.py` for evaluation: records, the
-decode-once uint8 cache in memory, batch decoding of JPEGs by the native
-libjpeg loader (`reid_tpu_torch.native`, PIL otherwise), and `preload` for
-in-memory splits. Images decode exactly as the JAX module decodes them, so
-both packages see the same pixels. The continual-training parts (pseudo
-labels, per-sample weights, class stats) and the h5py image cache, which
-nothing of this slice asks for, belong to later slices. PIL is imported
-only when used.
+Counterpart of `reid_tpu/data/dataset.py`: records, the decode-once uint8
+cache in memory, batch decoding of JPEGs by the native libjpeg loader
+(`reid_tpu_torch.native`, PIL otherwise), `preload` for in-memory splits,
+and the continual phase's pseudo labels (`add_pseudo`, the per-sample
+flags that `gather` returns as "weights", `set_cross_domain`) and class
+stats. Images decode exactly as the JAX module decodes them, so both
+packages see the same pixels. The h5py image cache is not ported. PIL is
+imported only when used.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
 Record = Tuple[str, int, int, int]   # (path, pid, camid, seqid)
 _SYNTH_CHUNK = 128      # synthetic images whose noise is drawn in one call
+_DECODE_THREADS = 8     # PIL decodes of one batch in flight
 
 
 class ReIDDataset:
@@ -27,10 +29,29 @@ class ReIDDataset:
         self.num_train_pids = num_pids
         self.height = height
         self.width = width
+        # per-sample weight flag: 0 = real, 1 = pseudo (ref :89)
+        self.flags: List[int] = [0] * len(self.records)
+        self.cross_domain = False
         self._cache: dict = {}
 
     def __len__(self):
         return len(self.records)
+
+    def add_pseudo(self, pseudo_records: Sequence[Record], num_new: int):
+        """Append pseudo-labelled samples, flagged 1; their pids come
+        offset by the caller (ref add_pseudo :51-67)."""
+        self.records.extend(pseudo_records)
+        self.flags.extend([1] * len(pseudo_records))
+        self.num_train_pids += num_new
+
+    def set_cross_domain(self):
+        self.cross_domain = True
+
+    def get_class_stats(self) -> np.ndarray:
+        """Per-class sample counts, at least 1 (ref image_reid_train.py:
+        40-41)."""
+        counts = np.bincount(self.labels, minlength=self.num_train_pids)
+        return np.maximum(counts, 1)
 
     @property
     def labels(self) -> np.ndarray:
@@ -84,9 +105,16 @@ class ReIDDataset:
         return self
 
     def gather(self, indices: Sequence[int]) -> dict:
-        """Host batch: uint8 images (B, H, W, 3) and int32 labels, cams,
-        seqs."""
+        """Host batch: uint8 images (B, H, W, 3), int32 labels, cams and
+        seqs, and the f32 pseudo flags as "weights". Images the native
+        loader does not decode are decoded by PIL on `_DECODE_THREADS`
+        threads (PIL releases the interpreter lock while it decodes)."""
         decoded = self._decode_batch_native(indices)
+        missing = [i for i in dict.fromkeys(int(i) for i in indices)
+                   if i not in decoded and i not in self._cache]
+        if len(missing) > 1:
+            with ThreadPoolExecutor(_DECODE_THREADS) as pool:
+                list(pool.map(self.load_image, missing))
         images = np.stack([decoded[i] if i in decoded else self.load_image(i)
                            for i in indices])
         recs = [self.records[i] for i in indices]
@@ -95,6 +123,8 @@ class ReIDDataset:
             "labels": np.asarray([r[1] for r in recs], np.int32),
             "cams": np.asarray([r[2] for r in recs], np.int32),
             "seqs": np.asarray([r[3] for r in recs], np.int32),
+            "weights": np.asarray([float(self.flags[i]) for i in indices],
+                                  np.float32),
         }
 
 

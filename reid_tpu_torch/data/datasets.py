@@ -1,7 +1,9 @@
 """Filename-regex dataset parsers producing (path, pid, camid, seqid) tuples.
 
 An own copy of `reid_tpu/data/datasets.py` (pure Python, unchanged), so
-that the port imports nothing of the JAX package.
+that the port imports nothing of the JAX package; `write_synthetic_tree`
+writes a colour-separable split in the Market-1501 or DukeMTMC-reID
+layout that they read (training smoke runs and tests).
 
 Exact semantics of ref `reid/datasets/`:
   Market1501 (dataset_market.py:7-81): `([-\\d]+)_c(\\d)s(\\d)` over *.jpg in
@@ -16,10 +18,14 @@ Exact semantics of ref `reid/datasets/`:
 from __future__ import annotations
 
 import glob
+import os
 import os.path as osp
 import re
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Tuple
+
+import numpy as np
 
 Record = Tuple[str, int, int, int]  # (path, pid, camid, seqid)
 
@@ -147,3 +153,60 @@ def build_dataset(name: str, root: str, verbose: bool = True) -> BaseImageDatase
     if name not in table:
         raise KeyError(f"unknown dataset '{name}'; have {sorted(table)}")
     return table[name](root, verbose)
+
+
+def write_synthetic_tree(root: str, layout: str, num_pids: int,
+                         per_id, height: int = 256, width: int = 128,
+                         num_cams: int = 6, query_per_id: int = 0,
+                         gallery_per_id: int = 0, seed: int = 0) -> str:
+    """Write colour-separable identities as JPEGs that `build_dataset(
+    layout, root)` reads: ids 1..num_pids with `per_id` train images each
+    (or per_id[i] for id i + 1), `query_per_id` query and `gallery_per_id`
+    gallery images each. An
+    identity is two colours, the upper and the lower half of the image,
+    drawn from `np.random.default_rng(seed)`, with uniform noise of +-25
+    per pixel; train and gallery image k of an id are seen by camera
+    k % num_cams + 1, query image k by the next camera. File names follow
+    "market1501" ({pid:04d}_c{cam}s1_{k:06d}_00.jpg under root) or
+    "dukemtmc" ({pid:04d}_c{cam}_f{k:07d}.jpg under root/DukeMTMC-reID).
+    The pixels are drawn id by id on the calling thread; a pool of threads
+    encodes the JPEGs."""
+    from PIL import Image
+
+    if layout not in ("market1501", "dukemtmc"):
+        raise KeyError(f"no synthetic layout '{layout}'")
+    rng = np.random.default_rng(seed)
+    colors = rng.integers(30, 226, (num_pids, 2, 3))
+    base = root if layout == "market1501" else osp.join(root,
+                                                         "DukeMTMC-reID")
+    counts = np.broadcast_to(per_id, (num_pids,))
+    splits = {"bounding_box_train": counts,
+              "query": [query_per_id] * num_pids,
+              "bounding_box_test": [gallery_per_id] * num_pids}
+    half = height // 2
+
+    def write(job):
+        path, img = job
+        Image.fromarray(img).save(path)
+
+    with ThreadPoolExecutor(max(os.cpu_count() or 1, 1)) as pool:
+        pending = []
+        for sub, count in splits.items():
+            os.makedirs(osp.join(base, sub), exist_ok=True)
+            for pid in range(1, num_pids + 1):
+                n = int(count[pid - 1])
+                img = rng.integers(-25, 26, (n, height, width, 3),
+                                   dtype=np.int16)
+                img[:, :half] += colors[pid - 1, 0].astype(np.int16)
+                img[:, half:] += colors[pid - 1, 1].astype(np.int16)
+                img = np.clip(img, 0, 255).astype(np.uint8)
+                for k in range(n):
+                    cam = (k + (sub == "query")) % num_cams + 1
+                    name = (f"{pid:04d}_c{cam}s1_{k:06d}_00.jpg"
+                            if layout == "market1501"
+                            else f"{pid:04d}_c{cam}_f{k:07d}.jpg")
+                    pending.append(pool.submit(
+                        write, (osp.join(base, sub, name), img[k])))
+        for f in pending:
+            f.result()
+    return root

@@ -6,8 +6,9 @@ non-blocking copies). A worker thread assembles the next uint8 host
 batches, in pinned memory when the batches go to a card, while the card
 embeds the current one. The last batch is padded by wrapping to the start,
 so every batch has the same shape; callers cut the results back to
-`len(dataset)`. The PK-sampled training loader belongs to the training
-slice.
+`len(dataset)`. `make_train_loader` (`reid_tpu/data/loader.py:71-85`)
+feeds an epoch of PK batches (`sampler.py`) the same way; the training
+augmentation then runs on the device (`transforms.augment_apply`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .dataset import ReIDDataset
+from .sampler import pk_epoch_indices
 
 PREFETCH = 2            # host batches assembled ahead of the consumer
 
@@ -91,3 +93,19 @@ def make_eval_loader(dataset: ReIDDataset, batch_size: int,
                      device="cuda") -> PrefetchLoader:
     return PrefetchLoader(dataset, batch_size, np.arange(len(dataset)),
                           device=device)
+
+
+def make_train_loader(dataset: ReIDDataset, batch_size: int,
+                      num_instances: int, seed: int = 0, epoch: int = 0,
+                      device="cuda") -> PrefetchLoader:
+    """One epoch of the training loader: PK batches (ref
+    RandomIdentitySampler_) when `num_instances` > 0, a plain shuffle
+    otherwise (ref image_reid_train.py:51-58), drawn from
+    `np.random.default_rng(seed + epoch)` as the JAX package draws them."""
+    rng = np.random.default_rng(seed + epoch)
+    if num_instances > 0:
+        idx = pk_epoch_indices(dataset.labels, batch_size, num_instances,
+                               rng)
+    else:
+        idx = rng.permutation(len(dataset))
+    return PrefetchLoader(dataset, batch_size, idx, device=device)

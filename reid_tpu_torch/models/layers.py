@@ -1,8 +1,9 @@
 """Model primitives of SERes18-IBN in PyTorch, NHWC like the JAX package.
 
 Counterparts of `reid_tpu/models/layers.py`: `InstanceNorm`, `IBN`,
-`SEBlock`, `GeM`, BatchNorm through `make_norm2d` (eval mode; BatchRenorm is
-not ported), `conv3x3` / `conv1x1` and `max_pool_same`; and for the
+`SEBlock`, `GeM`, BatchNorm through `make_norm2d` (train and eval mode;
+BatchRenorm is not ported), `conv3x3` / `conv1x1` and `max_pool_same`; and
+for the
 detectors flax's `nn.silu`, `nn.ConvTranspose(padding="SAME")` and the
 2x nearest `jax.image.resize`. Activations are
 (N, H, W, C) at every public function, as in the flax modules; a conv
@@ -168,8 +169,18 @@ class Linear(nn.Linear):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis (flax `nn.BatchNorm` with
-    use_running_average): f32 arithmetic, output in `dtype`."""
+    """BatchNorm over the last axis (flax `nn.BatchNorm`, momentum 0.9):
+    f32 arithmetic, output in `dtype`.
+
+    By default (flax's use_running_average) it normalizes with the
+    running statistics. With `train` (flax's train=True) it takes the
+    batch statistics as flax 0.12's `_compute_stats` does: in f32 over
+    every axis but the last, mean and E[x^2], var = max(E[x^2] - mean^2,
+    0), biased; it normalizes with them and folds the same biased var into
+    the running var (ra = 0.9 ra + 0.1 batch). `F.batch_norm` folds the
+    unbiased var and is not used."""
+
+    momentum = 0.9
 
     def __init__(self, c: int, use_bias: bool = True, eps: float = 1e-5,
                  dtype=torch.float32):
@@ -181,10 +192,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        xf = x.to(torch.float32)
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp(torch.mean(xf * xf, dims) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         # flax _normalize: y = (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(torch.float32) - self.running_mean) * mul
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
         if self.bias is not None:
             y = y + self.bias
         return y.to(self.dtype)
@@ -224,9 +247,9 @@ class IBN(nn.Module):
         self.IN = InstanceNorm(self.half, dtype=dtype)
         self.BN = make_norm2d(c - self.half, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         return torch.cat([self.IN(x[..., :self.half]),
-                          self.BN(x[..., self.half:])], dim=-1)
+                          self.BN(x[..., self.half:], train)], dim=-1)
 
 
 class SEBlock(nn.Module):
@@ -246,11 +269,30 @@ class SEBlock(nn.Module):
         return sigmoid_stepwise(self.fc2(s))[:, None, None, :]
 
 
+class _StepwiseSigmoid(torch.autograd.Function):
+    """`sigmoid_stepwise` with the gradient JAX takes for `lax.logistic`,
+    g * (y * (1 - y)), each step rounded to y's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
 def sigmoid_stepwise(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)) with every step rounded to x's dtype: XLA expands
     a bf16 `jax.nn.sigmoid` into exactly these bf16 ops, where
     `torch.sigmoid` rounds once (1 bf16 ulp apart on about a quarter of
-    the values)."""
+    the values). Under autograd the gradient is JAX's (`_StepwiseSigmoid`);
+    without it (serving, export) the plain ops run."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _StepwiseSigmoid.apply(x)
     return torch.reciprocal(1 + torch.exp(-x))
 
 
@@ -265,7 +307,11 @@ class GeM(nn.Module):
         self.p = nn.Parameter(torch.tensor(p_init))
 
     def forward(self, x):
-        xf = torch.clamp(x.to(torch.float32), min=self.eps)
+        # jnp.clip's maximum: at a tie with eps the gradient splits in half
+        # there, where clamp's passes whole; eps filled on the device (a
+        # copy from the host would wait for the device's queue)
+        xf = torch.maximum(x.to(torch.float32),
+                           torch.full((), self.eps, device=x.device))
         pooled = torch.mean(xf ** self.p, dim=(1, 2)) ** (1.0 / self.p)
         return pooled.to(self.dtype)
 

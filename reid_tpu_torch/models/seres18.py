@@ -6,8 +6,9 @@ residual branch before the skip-add, stage-4 stride 1, a stem of conv7x7/2
 -> BN -> maxpool3x3/2 with no ReLU, GeM pooling -> BNNeck -> bias-free
 classifier, and the per-camera bias. Module names equal the flax ones, so a
 flax variable path ("block21/down_conv") names the same layer here
-("block21.down_conv"). Returns (bnneck_feature, logits), the flax eval-mode
-outputs.
+("block21.down_conv"). Returns what flax returns: (bnneck_feature, logits)
+by default, and with train=True (the norms on batch statistics, which
+update the running ones) (pooled_feature, logits).
 """
 
 from __future__ import annotations
@@ -52,11 +53,12 @@ class SEBasicBlock(nn.Module):
             self.down_conv = conv1x1(cin, planes, stride, dtype)
             self.down_bn = make_norm2d(planes, dtype)
 
-    def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x, train: bool = False):
+        y = torch.relu(self.bn1(self.conv1(x), train))
+        y = self.bn2(self.conv2(y), train)
         y = self.seblock(y) * y
-        branch = self.down_bn(self.down_conv(x)) if self.downsample else x
+        branch = self.down_bn(self.down_conv(x), train) if self.downsample \
+            else x
         return torch.relu(y + branch)
 
 
@@ -95,13 +97,16 @@ class SERes18IBN(nn.Module):
                               generator=generator)
         return self
 
-    def forward(self, x, cam: Optional[torch.Tensor] = None):
+    def forward(self, x, cam: Optional[torch.Tensor] = None,
+                train: bool = False):
         x = x.to(self.dtype)
-        x = max_pool_same(self.bn0(self.conv0(x)))
+        x = max_pool_same(self.bn0(self.conv0(x), train))
         for name in block_names():
-            x = getattr(self, name)(x)
-        bn_feat = self.bnneck(self.gem(x))
+            x = getattr(self, name)(x, train)
+        feature = self.gem(x)
+        bn_feat = self.bnneck(feature, train)
         if cam is not None:
             bn_feat = bn_feat + self.cam_factor * self.cam_bias.to(
                 self.dtype)[cam]
-        return bn_feat, self.classifier(bn_feat)
+        logits = self.classifier(bn_feat)
+        return (feature if train else bn_feat), logits

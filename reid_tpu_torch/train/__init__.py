@@ -1,1 +1,2 @@
-"""Eval forwards and whole-dataset embedding (training is a later slice)."""
+"""Training and evaluation of the port: the train step, its state and
+optimizers, the image-ReID train loops and the eval forwards."""

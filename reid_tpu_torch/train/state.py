@@ -1,0 +1,159 @@
+"""Train state: the model, the loss state, both optimizers and the step.
+
+Counterpart of `reid_tpu/train/state.py` for the CNN branches of
+`make_optimizers` (ref image_reid_train.py:49-56, :87, :92-95). The model
+optimizer is optax's chain written out as explicit updates on tensors:
+`clip_by_global_norm(grad_clip)` (g * max / |g| only where |g| > max, the
+norm without an epsilon; `clip_grad_norm_` adds 1e-6 and is not used) ->
+`add_decayed_weights(weight_decay)` (L2 into the gradient, on every
+parameter, norm scales included) -> Adam (eps 1e-8 outside the root,
+bias correction at the incremented count) under PK sampling, else SGD
+with Nesterov momentum 0.9; the lr is the schedule at the count before
+the increment. The centers take `scale(1 / lamda)` -> `sgd(center_lr)`.
+Updates run in place on the parameters and moments with `torch._foreach`
+ops (a handful of multi-tensor launches a step) and read nothing back to
+the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..losses import HybridLossState, XBMState, init_hybrid_state, init_xbm
+from .schedules import Schedule, warmup_cosine_schedule
+
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
+_MOMENTUM = 0.9                        # the SGD branch (ref :55)
+
+
+class ModelOptimizer:
+    """optax.chain(clip_by_global_norm, add_decayed_weights, adam | sgd
+    with Nesterov momentum) over a list of parameters."""
+
+    def __init__(self, schedule: Schedule, weight_decay: float,
+                 grad_clip: float, adam: bool):
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.grad_clip = grad_clip
+        self.adam = adam
+
+    def init(self, params: List[torch.Tensor]) -> dict:
+        zeros = lambda: [torch.zeros_like(p) for p in params]   # noqa: E731
+        if self.adam:
+            return {"count": 0, "mu": zeros(), "nu": zeros()}
+        return {"count": 0, "trace": zeros()}
+
+    def clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """g, or (g / |g|) * max where the global norm |g| >= max."""
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            grads)))
+        keep = norm < self.grad_clip
+        one = torch.ones((), device=norm.device)
+        grads = torch._foreach_div(grads, torch.where(keep, one, norm))
+        torch._foreach_mul_(grads, torch.where(keep, one, one
+                                               * self.grad_clip))
+        return grads
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: dict) -> None:
+        """One update of `params` and `state`, in place."""
+        g = self.clip(list(grads))
+        torch._foreach_add_(g, params, alpha=self.weight_decay)
+        lr = self.schedule(state["count"])
+        count = state["count"] + 1
+        if self.adam:
+            mu, nu = state["mu"], state["nu"]
+            torch._foreach_mul_(mu, _B1)
+            torch._foreach_add_(mu, g, alpha=1.0 - _B1)
+            torch._foreach_mul_(nu, _B2)
+            torch._foreach_addcmul_(nu, g, g, value=1.0 - _B2)
+            f = np.float32
+            bc1 = float(f(1) - f(_B1) ** f(count))
+            bc2 = float(f(1) - f(_B2) ** f(count))
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, _EPS)
+            upd = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(upd, denom)
+        else:
+            trace = state["trace"]
+            torch._foreach_mul_(trace, _MOMENTUM)
+            torch._foreach_add_(trace, g)
+            upd = torch._foreach_add(g, trace, alpha=_MOMENTUM)
+        torch._foreach_mul_(upd, -lr)
+        torch._foreach_add_(params, upd)
+        state["count"] = count
+
+
+class CenterSGD:
+    """optax.chain(scale(1 / lamda), sgd(lr)): stateless."""
+
+    def __init__(self, lamda: float, lr: float):
+        self.scale = 1.0 / lamda
+        self.lr = lr
+
+    @torch.no_grad()
+    def apply(self, centers: torch.Tensor, grad: torch.Tensor
+              ) -> torch.Tensor:
+        return centers + (grad * self.scale) * -self.lr
+
+
+def make_optimizers(cfg: Config, steps_per_epoch: int):
+    """(model optimizer, center optimizer) of the CNN loops (ref
+    image_reid_train.py:51-56): Adam(lr, wd) under PK sampling, else
+    SGD-Nesterov, both under the WarmUpCosine schedule and the global-norm
+    clip; centers SGD(center_lr) after the 1/lamda rescale (ref :310-312).
+    The transformer branch and PLR-OSNet's MADGRAD come with their
+    models."""
+    backbone = cfg.model.backbone
+    if backbone in ("vit", "swin_v1", "swin_v2", "plr_osnet"):
+        raise NotImplementedError(
+            f"the optimizer of '{backbone}' is not ported: the port trains "
+            "the CNN branch (seres18)")
+    schedule = warmup_cosine_schedule(
+        cfg.train.lr, cfg.train.epochs, steps_per_epoch,
+        cfg.train.warmup_epochs, cfg.train.hold_epochs, cfg.train.eta_min)
+    tx = ModelOptimizer(schedule, cfg.train.weight_decay,
+                        cfg.train.grad_clip,
+                        adam=cfg.train.num_instances > 0)
+    return tx, CenterSGD(cfg.loss.center_lamda, cfg.train.center_lr)
+
+
+@dataclasses.dataclass
+class ReIDTrainState:
+    """What a train step reads and updates: the model (its parameters and
+    BatchNorm statistics), centers and DCC tables, the optimizers and their
+    state, the XBM ring, and the number of steps taken."""
+    model: torch.nn.Module
+    loss_state: HybridLossState
+    opt_state: dict
+    tx: ModelOptimizer
+    center_tx: CenterSGD
+    step: int = 0
+    xbm: Optional[XBMState] = None
+
+    def params(self) -> List[torch.Tensor]:
+        return list(self.model.parameters())
+
+
+def create_train_state(model: torch.nn.Module, cfg: Config,
+                       steps_per_epoch: int, generator: torch.Generator
+                       ) -> ReIDTrainState:
+    """A fresh state around `model`: centers drawn from `generator`, zero
+    DCC tables, fresh optimizer state, and the XBM ring under
+    `cfg.loss.xbm`, all on the model's device."""
+    dev = next(model.parameters()).device
+    tx, center_tx = make_optimizers(cfg, steps_per_epoch)
+    loss_state = init_hybrid_state(cfg.model.num_classes, cfg.model.feat_dim,
+                                   generator, dev)
+    xbm = init_xbm(cfg.loss.xbm_size_mult * cfg.train.batch_size,
+                   cfg.model.feat_dim, dev) if cfg.loss.xbm else None
+    return ReIDTrainState(model=model, loss_state=loss_state,
+                          opt_state=tx.init(list(model.parameters())),
+                          tx=tx, center_tx=center_tx, xbm=xbm)

@@ -1,15 +1,91 @@
-"""Eval forwards of the port.
+"""The train step and the eval forwards of the port.
 
-Counterpart of `reid_tpu/train/steps.py:embed_with_flip` (ref
-image_reid_inference.py:78-135, inference_efficient): the eval forward is
+Counterpart of `reid_tpu/train/steps.py`: `make_train_step` (the hot loop
+of ref image_reid_train.py:75-97 and the XBM variant of
+image_reid_train_xbm.py:88-92) and `embed_with_flip` (ref
+image_reid_inference.py:78-135, inference_efficient). The eval forward is
 the model's own call, so that a serving artifact can trace it; callers
-serve under `torch.inference_mode`. The train step belongs to the
-training slice.
+serve under `torch.inference_mode`.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..config import Config
+from ..data.transforms import augment_apply, augment_draws
+from ..losses import (hybrid_loss, update_dcc_luts, xbm_enqueue,
+                      xbm_triplet_loss)
+from .state import ReIDTrainState
+
+
+def make_train_step(cfg: Config, use_xbm_gate: bool = False,
+                    generator: Optional[torch.Generator] = None):
+    """train_step(state, batch) -> (state, metrics), updating `state` in
+    place. In order: the augmentation of uint8 images (draws from
+    `generator`, or the batch's own "aug_draws"); the train-mode forward,
+    which updates the BatchNorm statistics; the f32 hybrid loss, plus the
+    XBM triplet while "xbm_active" under `use_xbm_gate`; gradients for the
+    parameters and the centers; the clipped model update and the rescaled
+    center update; the DCC tables from the logits; the XBM enqueue.
+
+    batch: images (B, H, W, 3) uint8 or normalized float, labels (B,),
+    cams (B,) and weights (B,) optional, xbm_active a bool (default
+    True). Nothing is read back to the host: metrics are device scalars.
+    Under PK sampling with K dividing B, each class has exactly K
+    instances in a batch, which bounds the DCC table's rounds without a
+    host read."""
+    k = cfg.train.num_instances
+    rounds = k if k > 0 and cfg.train.batch_size % k == 0 else None
+    use_cam = cfg.model.cam_factor > 0
+
+    def train_step(state: ReIDTrainState, batch: dict):
+        images, labels = batch["images"], batch["labels"]
+        if images.dtype == torch.uint8:
+            draws = batch.get("aug_draws")
+            if draws is None:
+                b, h, w, _ = images.shape
+                draws = augment_draws(generator, b, h, w, pad=cfg.data.pad,
+                                      device=images.device)
+            images = augment_apply(images, draws, pad=cfg.data.pad,
+                                   flip_prob=cfg.data.flip_prob,
+                                   erase_prob=cfg.data.random_erasing_prob)
+        feature, logits = state.model(
+            images, batch.get("cams") if use_cam else None, train=True)
+        feature = feature.to(torch.float32)
+        logits = logits.to(torch.float32)
+        centers = state.loss_state.centers.detach().requires_grad_()
+        total, aux = hybrid_loss(
+            state.loss_state._replace(centers=centers), feature, logits,
+            labels, cfg.loss, weights=batch.get("weights"))
+        if use_xbm_gate and state.xbm is not None:
+            xbm_l = xbm_triplet_loss(feature, labels, state.xbm)
+            if batch.get("xbm_active", True):
+                total = total + xbm_l
+            aux["xbm"] = xbm_l
+        params = state.params()
+        grads = torch.autograd.grad(total, params + [centers],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        state.tx.apply(params, grads[:-1], state.opt_state)
+        new_centers = state.center_tx.apply(centers.detach(), grads[-1])
+        dcc = state.loss_state.dcc
+        if cfg.loss.use_dcc:
+            dcc = update_dcc_luts(dcc, logits, labels,
+                                  momentum=cfg.loss.dcc_momentum,
+                                  rounds=rounds)
+        state.loss_state = state.loss_state._replace(centers=new_centers,
+                                                     dcc=dcc)
+        if use_xbm_gate and state.xbm is not None:
+            state.xbm = xbm_enqueue(state.xbm, feature, labels)
+        state.step += 1
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in aux.items()}}
+        return state, metrics
+
+    return train_step
 
 
 def l2n(x: torch.Tensor) -> torch.Tensor:

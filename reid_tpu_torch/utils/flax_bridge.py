@@ -14,7 +14,12 @@ whose module names equal the flax ones; a transposed conv's kernel
 Variables arrive as a nested dict of numpy arrays ({"params": ...,
 "batch_stats": ...}) or as an `.npz` whose keys are the `/`-joined paths
 ("params/block11/conv1/kernel"), which takes the place of an orbax
-checkpoint here. A JAX `QuantState` crosses the same way.
+checkpoint here. A JAX `QuantState` crosses the same way. The way back,
+`flax_variables`, gives a module's variables in flax naming and layout:
+training writes its checkpoint with it. `train_state_from_flax` carries a
+whole JAX train state across (variables, centers, DCC tables, optimizer
+moments and count, XBM ring), so that both packages can resume from one
+point.
 """
 
 from __future__ import annotations
@@ -119,3 +124,110 @@ def quant_state_from_flax(qstate, device="cuda") -> QuantState:
     act_scales = {p: float(np.float32(s))
                   for p, s in tree["act_scales"].items()}
     return QuantState(kernels, w_scales, act_scales)
+
+
+def kernel_from_torch(w: np.ndarray) -> np.ndarray:
+    """PyTorch weight layout -> flax kernel layout (`kernel_to_torch`'s
+    inverse)."""
+    w = np.asarray(w)
+    return w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
+
+
+def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    """{"params": ..., "batch_stats": ...} of `model` as nested dicts of
+    f32 numpy arrays in flax naming and layout: the inverse of
+    `torch_state_dict`, so `load_flax_variables` reads it back."""
+    from ..models.layers import ConvTranspose2d
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree, path, leaf, value):
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+
+    for mname, m in model.named_modules():
+        path = mname.split(".") if mname else []
+        is_conv = isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
+        for name, t in m.named_parameters(recurse=False):
+            arr = t.detach().to("cpu", torch.float32).numpy()
+            leaf = name
+            if name == "weight":
+                if isinstance(m, ConvTranspose2d):
+                    arr, leaf = arr.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+                elif is_conv:
+                    arr, leaf = kernel_from_torch(arr), "kernel"
+                else:
+                    leaf = "scale"
+            put(params, path, leaf, np.array(arr))
+        for name, t in m.named_buffers(recurse=False):
+            leaf = {"running_mean": "mean", "running_var": "var"}[name]
+            put(stats, path, leaf, t.detach().to("cpu", torch.float32)
+                .numpy())
+    return {"params": params, "batch_stats": stats}
+
+
+def _named_tree(tree, names, device) -> list:
+    """A flax parameter-shaped tree as tensors in the order of `names`
+    (torch parameter names), kernels in torch layout."""
+    sd = torch_state_dict({"params": tree})
+    return [sd[n].to(device) for n in names]
+
+
+def _find_states(opt_state, fields):
+    """The optax states in a (nested) chain state that have `fields`."""
+    if all(hasattr(opt_state, f) for f in fields):
+        return [opt_state]
+    if isinstance(opt_state, (tuple, list)):
+        return [s for x in opt_state for s in _find_states(x, fields)]
+    return []
+
+
+def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
+    """The port's `ReIDTrainState` from a JAX `ReIDTrainState` (its arrays
+    read as numpy): the model with params and batch_stats, centers, DCC
+    tables, the Adam mu / nu and count (or the SGD trace), the XBM ring and
+    the step; the optimizers from `cfg` and `steps_per_epoch`, as the JAX
+    state's were built. The center optimizer has no state."""
+    from ..losses import DCCState, HybridLossState, XBMState
+    from ..models import build_model
+    from ..train.state import ReIDTrainState, make_optimizers
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    params = state.params
+    variables = {"params": params, "batch_stats": state.batch_stats}
+    model = build_model(cfg.model.backbone,
+                        num_classes=np.shape(
+                            params["classifier"]["kernel"])[1],
+                        num_cams=np.shape(params["cam_bias"])[0],
+                        dtype=getattr(torch, cfg.model.dtype), device=device)
+    load_flax_variables(model, variables)
+    names = [n for n, _ in model.named_parameters()]
+    tx, center_tx = make_optimizers(cfg, steps_per_epoch)
+    adam = _find_states(state.opt_state, ("mu", "nu", "count"))
+    if tx.adam:
+        (a,) = adam
+        opt = {"count": int(np.asarray(a.count)),
+               "mu": _named_tree(a.mu, names, device),
+               "nu": _named_tree(a.nu, names, device)}
+    else:
+        (tr,) = _find_states(state.opt_state, ("trace",))
+        (sched,) = _find_states(state.opt_state, ("count",))
+        opt = {"count": int(np.asarray(sched.count)),
+               "trace": _named_tree(tr.trace, names, device)}
+    ls = state.loss_state
+    loss_state = HybridLossState(
+        centers=t(ls.centers),
+        dcc=DCCState(lut_ccc=t(ls.dcc.lut_ccc), lut_icc=t(ls.dcc.lut_icc)))
+    xbm = None
+    if state.xbm is not None:
+        xbm = XBMState(feats=t(state.xbm.feats),
+                       labels=t(state.xbm.labels, torch.int32),
+                       ptr=int(np.asarray(state.xbm.ptr)))
+    return ReIDTrainState(model=model, loss_state=loss_state, opt_state=opt,
+                          tx=tx, center_tx=center_tx,
+                          step=int(np.asarray(state.step)), xbm=xbm)

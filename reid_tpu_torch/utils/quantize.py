@@ -255,7 +255,9 @@ class QSEBasicBlock(nn.Module):
         self.ibn = ibn
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            raise ValueError("an int8 block serves; it does not train")
         return se_basic_block_s8(x.contiguous(), self.p, ibn=self.ibn,
                                  out_dtype=self.dtype)
 

@@ -53,30 +53,63 @@ def flax_init_npz(root):
     return ckpt
 
 
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    """`flax_init_npz` once for the module's tests."""
+    return flax_init_npz(tmp_path_factory.mktemp("init"))
+
+
+@pytest.fixture(scope="module")
+def bf16_runs(tmp_path_factory, ckpt):
+    """Both packages' `track_main --gt` on the scene with the bf16 embed
+    (--chunk 8), run once for test_track_main_matches_jax[bf16] and
+    test_gt_metrics_match_jax: (metrics and MOT file) of JAX, then of the
+    port, and the JAX run's calls of the int8 kernels' routes."""
+    from reid_tpu.cli import track_main as jax_track_main
+    from reid_tpu_torch.cli import track_main
+
+    root = tmp_path_factory.mktemp("bf16")
+    fdir, det = write_scene(root)
+    gt = write_gt(root)
+    flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
+             "--crop_hw", "64", "32", "--num_classes", "16", "--max_dets",
+             "8", "--gt", gt, "--benchmark", "MOT17"]
+    out_j, out_t = str(root / "jax.txt"), str(root / "torch.txt")
+    with pytest.MonkeyPatch.context() as mp:
+        calls = force_jax_routes(mp)
+        want = jax_track_main(flags + ["--save_txt", out_j])
+    got = track_main(flags + ["--save_txt", out_t, "--ckpt", ckpt],
+                     device="cpu")
+    return (want, out_j), (got, out_t), dict(calls)
+
+
 def read_mot(path):
     rows = np.loadtxt(path, delimiter=",", ndmin=2)
     return rows[np.lexsort((rows[:, 1], rows[:, 0]))]
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
-def test_track_main_matches_jax(tmp_path, monkeypatch, int8):
+def test_track_main_matches_jax(tmp_path, monkeypatch, ckpt, bf16_runs,
+                                int8):
     from reid_tpu.cli import track_main as jax_track_main
     from reid_tpu_torch.cli import track_main
 
-    fdir, det = write_scene(tmp_path)
-    flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
-             "--crop_hw", "64", "32", "--num_classes", "16", "--max_dets",
-             "8"] + (["--int8"] if int8 else [])
-    ckpt = flax_init_npz(tmp_path)
-
-    calls = force_jax_routes(monkeypatch)
-    out_j = str(tmp_path / "jax.txt")
-    n_j = jax_track_main(flags + ["--save_txt", out_j])
+    if int8:
+        fdir, det = write_scene(tmp_path)
+        flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
+                 "--crop_hw", "64", "32", "--num_classes", "16",
+                 "--max_dets", "8", "--int8"]
+        calls = force_jax_routes(monkeypatch)
+        out_j = str(tmp_path / "jax.txt")
+        n_j = jax_track_main(flags + ["--save_txt", out_j])
+        out_t = str(tmp_path / "torch.txt")
+        n_t = track_main(flags + ["--save_txt", out_t, "--ckpt", ckpt],
+                         device="cpu")
+    else:
+        # the bf16 run, with --gt, which leaves the MOT rows as they are
+        (_, out_j), (_, out_t), calls = bf16_runs
+        n_j, n_t = len(read_mot(out_j)), len(read_mot(out_t))
     assert (calls["qconv"] > 0 and calls["qblock"] > 0) == int8
-
-    out_t = str(tmp_path / "torch.txt")
-    n_t = track_main(flags + ["--save_txt", out_t, "--ckpt", ckpt],
-                     device="cpu")
     assert n_t == n_j > 20
     rj, rt = read_mot(out_j), read_mot(out_t)
     np.testing.assert_array_equal(rt[:, :2], rj[:, :2])
@@ -95,22 +128,11 @@ def write_gt(root):
     return str(path)
 
 
-def test_gt_metrics_match_jax(tmp_path):
+def test_gt_metrics_match_jax(bf16_runs):
     """`--gt`: `track_main` returns the CLEAR / Identity / HOTA dict, equal
     to the JAX package's on the same scene and flax init (bf16 embed,
     --chunk 8: the program of test_track_main_matches_jax[bf16])."""
-    from reid_tpu.cli import track_main as jax_track_main
-    from reid_tpu_torch.cli import track_main
-
-    fdir, det = write_scene(tmp_path)
-    gt = write_gt(tmp_path)
-    ckpt = flax_init_npz(tmp_path)
-    flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
-             "--crop_hw", "64", "32", "--num_classes", "16", "--max_dets",
-             "8", "--gt", gt, "--benchmark", "MOT17"]
-    want = jax_track_main(flags + ["--save_txt", str(tmp_path / "j.txt")])
-    got = track_main(flags + ["--save_txt", str(tmp_path / "t.txt"),
-                              "--ckpt", ckpt], device="cpu")
+    (want, _), (got, _), _ = bf16_runs
     assert isinstance(got, dict) and got.keys() == want.keys()
     assert got["MOTA"] > 50 and got["num_gt"] > 40
     for key in want:
@@ -181,6 +203,11 @@ def centernet_ckpts(root):
         root / "centernet.npz")
 
 
+# frames of the static scene: 8 calibrate the int8 detector, the rest
+# confirm tracks
+N_STATIC = 10
+
+
 def write_static_scene(root, n_frames=16):
     """Three bright 32x80 boxes sliding 1 px a frame over a black 120x160
     background: random detector weights give boxes that stay put from
@@ -197,7 +224,7 @@ def write_static_scene(root, n_frames=16):
 
 
 @pytest.mark.parametrize("detector", ["yolov5_int8", "centernet"])
-def test_builtin_detector_matches_jax(tmp_path, capsys, monkeypatch,
+def test_builtin_detector_matches_jax(tmp_path, capsys, monkeypatch, ckpt,
                                       detector):
     """No --detections: the built-in detector on every frame (the step
     path; --chunk 8 falls back to it, as in the JAX package), then the
@@ -218,8 +245,7 @@ def test_builtin_detector_matches_jax(tmp_path, capsys, monkeypatch,
     from reid_tpu.cli import track_main as jax_track_main
     from reid_tpu_torch.cli import track_main
 
-    fdir = write_static_scene(tmp_path)
-    ckpt = flax_init_npz(tmp_path)
+    fdir = write_static_scene(tmp_path, N_STATIC)
     flags = ["--source", fdir, "--chunk", "8", "--crop_hw", "64", "32",
              "--num_classes", "16", "--max_dets", "8"]
     jax_only = []
@@ -259,7 +285,7 @@ def test_builtin_detector_matches_jax(tmp_path, capsys, monkeypatch,
     if detector == "yolov5_int8":
         assert calls == [(8, 120, 160, 3)]
         assert sorted(os.listdir(tmp_path / "vid")) == [
-            f"{i:06d}.jpg" for i in range(1, 17)]
+            f"{i:06d}.jpg" for i in range(1, N_STATIC + 1)]
 
 
 def test_step_path_runs_on_cpu(tmp_path):

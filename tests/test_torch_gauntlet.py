@@ -1,6 +1,6 @@
 """The port's gauntlet (`reid_tpu_torch.gauntlet`): its copy of the scene
 renderer byte-equal to examples/gauntlet.py at a cut size, its bands equal
-to scripts/mot_gauntlet.py's, and a cut scene (24 frames, 10 pedestrians,
+to scripts/mot_gauntlet.py's, and a cut scene (16 frames, 10 pedestrians,
 crops of 64x32, 16 classes, chunks of 8 frames and 16 detection slots)
 run through the port's and the JAX package's `track_main --gt` with the
 gauntlet's other flags and the same flax init: equal metrics for two
@@ -52,7 +52,7 @@ def scene(tmp_path_factory):
     from reid_tpu_torch.utils.flax_bridge import save_npz
 
     root = tmp_path_factory.mktemp("gauntlet")
-    img, gt, det = gauntlet.write_gauntlet(str(root), t_total=24, n_ped=10)
+    img, gt, det = gauntlet.write_gauntlet(str(root), t_total=16, n_ped=10)
     model = jbuild("seres18", num_classes=16, dtype=jnp.bfloat16)
     variables = jax.jit(lambda k, x: model.init(k, x, train=True))(
         jax.random.PRNGKey(0), jnp.zeros((2, 64, 32, 3), jnp.bfloat16))

@@ -26,11 +26,22 @@ from test_torch_retrieval import write_market_tree
 
 
 @pytest.fixture(scope="module")
-def tree_and_weights(tmp_path_factory):
+def jax_state():
+    """The random f32 train state whose variables both packages serve."""
     import reid_tpu.config as jcfg
-    from reid_tpu.data import ReIDDataset as JDataset
     from reid_tpu.models import build_model as jbuild
     from reid_tpu.train.state import create_train_state
+
+    cfg = jcfg.Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=6))
+    return create_train_state(jax.random.PRNGKey(0),
+                              jbuild("seres18", num_classes=6, num_cams=6),
+                              cfg, 1, input_shape=(2, 80, 40, 3))
+
+
+@pytest.fixture(scope="module")
+def tree_and_weights(tmp_path_factory, jax_state):
+    from reid_tpu.data import ReIDDataset as JDataset
     from reid_tpu.utils import save_checkpoint
     from reid_tpu_torch.data import ReIDDataset, build_dataset
     from reid_tpu_torch.utils.flax_bridge import save_npz
@@ -43,11 +54,7 @@ def tree_and_weights(tmp_path_factory):
         np.testing.assert_array_equal(
             ReIDDataset(split, 6, 80, 40).gather(idx)["images"],
             JDataset(split, 6, 80, 40).gather(idx)["images"])
-    cfg = jcfg.Config()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=6))
-    state = create_train_state(jax.random.PRNGKey(0),
-                               jbuild("seres18", num_classes=6, num_cams=6),
-                               cfg, 1, input_shape=(2, 80, 40, 3))
+    state = jax_state
     ckpt = save_checkpoint(str(tmp / "ckpt"), state)
     npz = str(tmp / "init.npz")
     save_npz(npz, {"params": jax.tree_util.tree_map(np.asarray, state.params),
@@ -84,27 +91,17 @@ def jax_int8_routes(monkeypatch):
     return calls
 
 
-def export_both(root, ckpt, npz, tmp, int8):
-    """Each package's serving artifact of the same weights; under `int8`
-    each calibrates on the CLI's calibration batch (the first 8 gallery
-    images at --bs 8)."""
-    import reid_tpu.config as jcfg
+def export_both(root, state, npz, tmp, int8):
+    """Each package's serving artifact of the same weights (`state`, whose
+    variables `npz` holds); under `int8` each calibrates on the CLI's
+    calibration batch (the first 8 gallery images at --bs 8)."""
     from reid_tpu.data import ReIDDataset as JDataset
     from reid_tpu.data import build_dataset as jbuild_dataset
     from reid_tpu.eval.serving import export_reid_artifact as jexport
-    from reid_tpu.models import build_model as jbuild
-    from reid_tpu.train.state import create_train_state
-    from reid_tpu.utils import restore_checkpoint
     from reid_tpu_torch.eval.serving import export_reid_artifact
     from reid_tpu_torch.models import build_model
     from reid_tpu_torch.utils.flax_bridge import load_flax_variables
 
-    cfg = jcfg.Config()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=6))
-    state = create_train_state(jax.random.PRNGKey(0),
-                               jbuild("seres18", num_classes=6, num_cams=6),
-                               cfg, 1, input_shape=(2, 80, 40, 3))
-    state = restore_checkpoint(ckpt, state)
     raw = jbuild_dataset("market1501", root)
     calib = JDataset(raw.gallery, 6, 80, 40).gather(np.arange(8))["images"]
     jpath, tpath = str(tmp / "reid.stablehlo"), str(tmp / "reid.pt2")
@@ -122,8 +119,8 @@ def export_both(root, ckpt, npz, tmp, int8):
     [], ["--no-rerank"], ["--int8"], ["--search_option", "sparse"],
     ["--artifact", "f32"], ["--artifact", "int8"],
     ["--search_option", "ivf"], ["--attributes_mat"]])
-def test_inference_main_matches_jax(tree_and_weights, extra, monkeypatch,
-                                    tmp_path):
+def test_inference_main_matches_jax(tree_and_weights, jax_state, extra,
+                                    monkeypatch, tmp_path):
     from reid_tpu.cli import inference_main as jax_inference_main
     from reid_tpu_torch.cli import inference_main
 
@@ -134,7 +131,7 @@ def test_inference_main_matches_jax(tree_and_weights, extra, monkeypatch,
     if int8:
         calls = jax_int8_routes(monkeypatch)
     if extra and extra[0] == "--artifact":
-        jpath, tpath = export_both(root, ckpt, npz, tmp_path, int8)
+        jpath, tpath = export_both(root, jax_state, npz, tmp_path, int8)
         jax_only, port_only = ["--artifact", jpath], ["--artifact", tpath]
     elif extra == ["--attributes_mat"]:
         flags += extra + [write_attributes(str(tmp_path / "attr.mat"))]

@@ -69,3 +69,24 @@ def test_every_module_imports_without_jax():
 def test_chip_smoke_imports_no_jax(path):
     roots = set(_imported_roots(os.path.join(ROOT, path)))
     assert not roots & set(BANNED), roots
+
+
+TRAINING_SLICE = [
+    "reid_tpu_torch.losses", "reid_tpu_torch.losses.utils",
+    "reid_tpu_torch.losses.triplet", "reid_tpu_torch.losses.center",
+    "reid_tpu_torch.losses.identification", "reid_tpu_torch.losses.dcc",
+    "reid_tpu_torch.losses.xbm", "reid_tpu_torch.losses.hybrid",
+    "reid_tpu_torch.train.schedules", "reid_tpu_torch.train.state",
+    "reid_tpu_torch.train.steps", "reid_tpu_torch.train.image_train",
+    "reid_tpu_torch.data.sampler", "reid_tpu_torch.image_reid_train"]
+
+
+@pytest.mark.parametrize("mod", TRAINING_SLICE)
+def test_training_slice_module_is_checked(mod):
+    """The training slice's modules are among those the checks above walk
+    (no banned import in their source, each imports with JAX blocked)."""
+    assert mod in _modules()
+    path = os.path.join(ROOT, *mod.split("."))
+    path = path + ".py" if os.path.exists(path + ".py") else os.path.join(
+        path, "__init__.py")
+    assert not set(_imported_roots(path)) & set(BANNED)

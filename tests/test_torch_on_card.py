@@ -42,6 +42,17 @@ Tolerances:
   * the int8 serving artifact (torch.export, K1 and K2 as custom ops)
     loaded on the card: K1 and K2 launched (counted) and its output equal
     to the eager int8 embed bit for bit.
+  * the train step: two bf16 steps of SERes18 at 256x128 (B = 16, the
+    augmentation on the card) give finite losses, parameters and DCC
+    tables of unit rows; one f32 step from one state on the card and on
+    the CPU (the same augmentation draws, TF32 off) within
+    tests/test_torch_train_step.py's limits for a step: loss 1e-4
+    relative, statistics, centers and tables 1e-3 of their largest
+    magnitude, the parameter update at a cosine >= 0.9995 and within 3%
+    of its norm (Adam's steps of elements whose gradient is rounding
+    noise); and, after two warm-up steps, a bf16 step under
+    torch.cuda's sync debug mode "error": the step reads nothing back
+    and copies nothing from the host.
 """
 
 import numpy as np
@@ -618,3 +629,116 @@ def test_int8_artifact_on_card_launches_kernels(cuda, tmp_path):
                 counts = launch_counts()
                 assert counts[tq.NAME] == 2 and counts[tqb.NAME] == 4, counts
                 assert torch.equal(got, want), (b, (got - want).abs().max())
+
+
+def _train_setup(c, b, hw):
+    """Flax variables of a seeded SERes18, unit DCC table rows, a uint8
+    batch of b // 4 ids x 4 and its augmentation draws, all on the host."""
+    from reid_tpu_torch.data.transforms import augment_draws
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils.flax_bridge import flax_variables
+
+    variables = flax_variables(build_model(
+        "seres18", c, dtype=torch.float32, device="cpu",
+        generator=torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    lut = rng.normal(size=(2, c, c)).astype(np.float32)
+    lut /= np.linalg.norm(lut, axis=2, keepdims=True)
+    images = rng.integers(0, 256, (b, *hw, 3), dtype=np.uint8)
+    labels = np.repeat(np.arange(b // 4) * 3, 4).astype(np.int32)
+    draws = augment_draws(torch.Generator().manual_seed(1), b, *hw,
+                          device="cpu")
+    return variables, lut, images, labels, draws
+
+
+def _train_state(dev, dtype, variables, lut, cfg):
+    from reid_tpu_torch.losses import DCCState
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.train.state import create_train_state
+    from reid_tpu_torch.utils.flax_bridge import load_flax_variables
+
+    model = build_model("seres18", cfg.model.num_classes, dtype=dtype,
+                        device=dev)
+    load_flax_variables(model, variables)
+    state = create_train_state(model, cfg, 100,
+                               torch.Generator().manual_seed(2))
+    state.loss_state = state.loss_state._replace(dcc=DCCState(
+        *(torch.from_numpy(t).to(dev) for t in lut)))
+    return state
+
+
+def test_train_step_bf16_on_card_is_finite(cuda):
+    from reid_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from reid_tpu_torch.train.steps import make_train_step
+
+    cfg = Config(model=ModelConfig(num_classes=32),
+                 train=TrainConfig(batch_size=16, num_instances=4))
+    variables, lut, images, labels, _ = _train_setup(32, 16, (256, 128))
+    state = _train_state(cuda, torch.bfloat16, variables, lut, cfg)
+    step = make_train_step(cfg, generator=torch.Generator(cuda)
+                           .manual_seed(0))
+    batch = {"images": torch.from_numpy(images).to(cuda),
+             "labels": torch.from_numpy(labels).to(cuda)}
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+    assert np.all(np.isfinite(losses)) and state.step == 2
+    for p in state.model.parameters():
+        assert p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+    for t in state.loss_state.dcc:
+        norms = t.norm(dim=1)
+        assert bool(torch.isfinite(t).all())
+        assert torch.allclose(norms[labels[::4]], torch.ones(4, device=cuda),
+                              atol=1e-5)
+
+
+def test_train_step_on_card_makes_no_host_sync(cuda):
+    from reid_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from reid_tpu_torch.train.steps import make_train_step
+
+    cfg = Config(model=ModelConfig(num_classes=32),
+                 train=TrainConfig(batch_size=16, num_instances=4))
+    variables, lut, images, labels, _ = _train_setup(32, 16, (256, 128))
+    state = _train_state(cuda, torch.bfloat16, variables, lut, cfg)
+    step = make_train_step(cfg, generator=torch.Generator(cuda)
+                           .manual_seed(0))
+    batch = {"images": torch.from_numpy(images).to(cuda),
+             "labels": torch.from_numpy(labels).to(cuda)}
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, m = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(m["loss"])) and state.step == 3
+
+
+def test_train_step_f32_on_card_matches_cpu(cuda):
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from reid_tpu_torch.train.steps import make_train_step
+
+    cfg = Config(model=ModelConfig(num_classes=16, dtype="float32"),
+                 train=TrainConfig(batch_size=8, num_instances=4))
+    variables, lut, images, labels, draws = _train_setup(16, 8, (64, 32))
+    out = {}
+    with full_f32():
+        for dev in ("cpu", cuda):
+            state = _train_state(dev, torch.float32, variables, lut, cfg)
+            start = [p.detach().clone() for p in state.model.parameters()]
+            state, m = make_train_step(cfg)(state, {
+                "images": torch.from_numpy(images).to(dev),
+                "labels": torch.from_numpy(labels).to(dev),
+                "aug_draws": {k: v.to(dev) for k, v in draws.items()}})
+            out[str(dev)] = (float(m["loss"]), torch.cat([
+                (p.detach() - s).ravel() for p, s in zip(
+                    state.model.parameters(), start)]).cpu().double(),
+                [t.cpu() for t in state.model.buffers()]
+                + [state.loss_state.centers.cpu()]
+                + [t.cpu() for t in state.loss_state.dcc])
+    (l_c, u_c, t_c), (l_g, u_g, t_g) = out["cpu"], out["cuda"]
+    assert abs(l_g - l_c) <= 1e-4 * abs(l_c)
+    assert float(u_g @ u_c / (u_g.norm() * u_c.norm())) >= 0.9995
+    assert float((u_g - u_c).norm()) <= 0.03 * float(u_c.norm())
+    for a, b in zip(t_g, t_c):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
