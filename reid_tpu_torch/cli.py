@@ -8,31 +8,35 @@ runs the same program on the CPU with the kernels' plain versions.
   * `track_main`: a frame directory, video file or webcam index in ->
     detections (a MOT det file with `--detections`, else the built-in
     detector: CenterNetLite, or YOLOv5 with `--detector yolov5`, its trunk
-    in int8 under `--int8`) -> SERes18 embed (bf16, or int8 with
-    `--int8`) -> tracker -> MOT txt [+ annotated frames with
-    `--save_vid`] [+ CLEAR/Identity/HOTA against `--gt`]. Camera-motion
-    compensation (botsort's default, `--gmc on|off`) estimates each
-    chunk's affines on the device; the step path (`--chunk 1`, and every
-    run with a built-in detector or `--save_vid`) estimates them per frame
-    on the host.
-  * `inference_main`: a Market-style split -> SERes18 embeddings (f32 with
-    TTA flip, or the int8 serving embed with `--int8`) -> camera de-bias ->
-    k-reciprocal Jaccard re-rank -> DBSCAN + tracklet smoothing -> re-rank
-    -> CMC and mAP (`--no-rerank`: dot-product scores). `--ckpt` is the
+    in int8 under `--int8`) -> the `--backbone` embed (seres18, baseline,
+    resnet50 or agw; bf16, or int8 with `--int8`), whose width the
+    tracker takes from a probe forward -> tracker -> MOT txt [+ annotated
+    frames with `--save_vid`] [+ CLEAR/Identity/HOTA against `--gt`].
+    Camera-motion compensation (botsort's default, `--gmc on|off`)
+    estimates each chunk's affines on the device; the step path (`--chunk
+    1`, and every run with a built-in detector or `--save_vid`) estimates
+    them per frame on the host.
+  * `inference_main`: a Market-style split -> `--backbone` embeddings
+    (f32 with TTA flip, or the int8 serving embed with `--int8`) -> camera
+    de-bias -> k-reciprocal Jaccard re-rank -> DBSCAN + tracklet
+    smoothing -> re-rank -> CMC and mAP (`--no-rerank`: dot-product
+    scores). `--ckpt` is the
     `.npz` of the flax variable tree; `--artifact` serves a `.pt2` written
     by `eval.serving.export_reid_artifact` (torch.export, f32 or int8) in
     its place, where the JAX package reads StableHLO. `--search_option
     ivf` ranks through the IVF index, `--attributes_mat` adds the Market
     attribute prior. The classifier's width is read from `--ckpt`. The
     port's retrieval runs on one device.
-  * `train_main`: SERes18-IBN on a Market-style train split (PK batches,
-    device augmentation, the hybrid loss, Adam + center SGD, DCC tables,
-    `--xbm`), the `.npz` checkpoint
+  * `train_main`: a `--backbone` on a Market-style train split (PK
+    batches, device augmentation, the hybrid loss, Adam + center SGD, DCC
+    tables, `--xbm`), the `.npz` checkpoint
     `checkpoint/cnn_net_checkpoint_{dataset}.npz` (where the JAX package
     writes orbax), `--ckpt` warm start, `--continual` pseudo-labelling of
     `--target_dataset` and continual training, `--export` a `.pt2`
-    serving artifact. One device; `--renorm` (BatchRenorm) and other
-    backbones are not ported.
+    serving artifact. One device; `--renorm` (BatchRenorm) is not ported.
+
+`--backbone` takes the names `models.build_model` has (seres18, baseline,
+resnet50, agw); the others raise KeyError.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt

@@ -1,4 +1,5 @@
-"""Model primitives of SERes18-IBN in PyTorch, NHWC like the JAX package.
+"""Model primitives of the port's backbones in PyTorch, NHWC like the JAX
+package.
 
 Counterparts of `reid_tpu/models/layers.py`: `InstanceNorm`, `IBN`,
 `SEBlock`, `GeM`, BatchNorm through `make_norm2d` (train and eval mode;
@@ -43,6 +44,13 @@ def lecun_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
                                  generator=generator)
 
 
+def _tf32_convs():
+    """cuDNN's TF32 allowed inside, its other flags as they are."""
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                   deterministic=c.deterministic, allow_tf32=True)
+
+
 class Conv2d(nn.Conv2d):
     """Conv on NHWC activations (flax `nn.Conv` semantics), bias-free
     unless `bias`; a bias is added in `dtype`, as flax adds it.
@@ -75,9 +83,15 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         w = self.weight.to(self.dtype)
-        if self.keep_f32:
-            x, w = x.to(torch.float32), w.to(torch.float32)
-        y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
+        if self.keep_f32 and self.dtype != torch.float32:
+            # TF32 holds a bf16 value exactly and multiplies two exactly,
+            # so on the card the f32 conv of these operands may take the
+            # TF32 tensor cores without changing what it computes
+            with _tf32_convs():
+                y = F.conv2d(x.to(torch.float32), w.to(torch.float32),
+                             stride=self.stride, padding=self.padding)
+        else:
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
         y = y.permute(0, 2, 3, 1)
         if self.bias is None:
             return y
@@ -151,11 +165,15 @@ def upsample2_nearest(x: torch.Tensor) -> torch.Tensor:
 
 
 class Linear(nn.Linear):
-    """Bias-free dense layer (flax `nn.Dense(use_bias=False)`)."""
+    """Bias-free dense layer (flax `nn.Dense(use_bias=False)`);
+    `keep_f32` as `Conv2d`'s: a BatchNorm reads the product, which the
+    compiled JAX program then keeps in f32."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32,
+                 keep_f32: bool = False):
         super().__init__(cin, cout, bias=False)
         self.dtype = dtype
+        self.keep_f32 = keep_f32
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None,
                          std: Optional[float] = None):
@@ -165,7 +183,10 @@ class Linear(nn.Linear):
             nn.init.normal_(self.weight.data, 0.0, std, generator=generator)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.keep_f32:
+            x, w = x.to(torch.float32), w.to(torch.float32)
+        return F.linear(x, w)
 
 
 class BatchNorm(nn.Module):
@@ -316,12 +337,16 @@ class GeM(nn.Module):
         return pooled.to(self.dtype)
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1, dtype=torch.float32):
-    return Conv2d(cin, cout, 3, stride=stride, padding=1, dtype=dtype)
+def conv3x3(cin: int, cout: int, stride: int = 1, dtype=torch.float32,
+            keep_f32: bool = False):
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, dtype=dtype,
+                  keep_f32=keep_f32)
 
 
-def conv1x1(cin: int, cout: int, stride: int = 1, dtype=torch.float32):
-    return Conv2d(cin, cout, 1, stride=stride, padding=0, dtype=dtype)
+def conv1x1(cin: int, cout: int, stride: int = 1, dtype=torch.float32,
+            keep_f32: bool = False):
+    return Conv2d(cin, cout, 1, stride=stride, padding=0, dtype=dtype,
+                  keep_f32=keep_f32)
 
 
 def max_pool_same(x, window: int = 3, stride: int = 2, padding: int = 1):

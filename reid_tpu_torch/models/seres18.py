@@ -43,14 +43,18 @@ class SEBasicBlock(nn.Module):
         super().__init__()
         self.cin, self.planes, self.stride = cin, planes, stride
         self.ibn, self.downsample = ibn, downsample
-        self.conv1 = conv3x3(cin, planes, stride, dtype)
+        # every conv whose product a BatchNorm reads keeps it in f32, as
+        # the compiled JAX program does; IBN's channel split reads conv1's
+        # product rounded to `dtype` (bit-equal to flax in bf16 either way)
+        self.conv1 = conv3x3(cin, planes, stride, dtype, keep_f32=not ibn)
         self.bn1 = IBN(planes, dtype=dtype) if ibn else make_norm2d(
             planes, dtype)
-        self.conv2 = conv3x3(planes, planes, 1, dtype)
+        self.conv2 = conv3x3(planes, planes, 1, dtype, keep_f32=True)
         self.bn2 = make_norm2d(planes, dtype)
         self.seblock = SEBlock(planes, dtype)
         if downsample:
-            self.down_conv = conv1x1(cin, planes, stride, dtype)
+            self.down_conv = conv1x1(cin, planes, stride, dtype,
+                                     keep_f32=True)
             self.down_bn = make_norm2d(planes, dtype)
 
     def forward(self, x, train: bool = False):
@@ -70,7 +74,8 @@ class SERes18IBN(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.cam_factor = cam_factor
-        self.conv0 = Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype)
+        self.conv0 = Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype,
+                            keep_f32=True)
         self.bn0 = make_norm2d(64, dtype)
         cin = 64
         for name, (planes, stride, ibn, down) in zip(block_names(), STAGES):

@@ -115,7 +115,7 @@ def make_optimizers(cfg: Config, steps_per_epoch: int):
     if backbone in ("vit", "swin_v1", "swin_v2", "plr_osnet"):
         raise NotImplementedError(
             f"the optimizer of '{backbone}' is not ported: the port trains "
-            "the CNN branch (seres18)")
+            "the CNN branch (seres18, baseline, resnet50, agw)")
     schedule = warmup_cosine_schedule(
         cfg.train.lr, cfg.train.epochs, steps_per_epoch,
         cfg.train.warmup_epochs, cfg.train.hold_epochs, cfg.train.eta_min)

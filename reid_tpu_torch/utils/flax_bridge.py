@@ -203,7 +203,8 @@ def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
     model = build_model(cfg.model.backbone,
                         num_classes=np.shape(
                             params["classifier"]["kernel"])[1],
-                        num_cams=np.shape(params["cam_bias"])[0],
+                        num_cams=np.shape(params["cam_bias"])[0]
+                        if "cam_bias" in params else cfg.model.num_cams,
                         dtype=getattr(torch, cfg.model.dtype), device=device)
     load_flax_variables(model, variables)
     names = [n for n, _ in model.named_parameters()]

@@ -1,5 +1,5 @@
 """Post-training int8 quantization of any module tree of the port (the
-SERes18 embed, the YOLOv5 trunk).
+SERes18 and ResNet embeds, the YOLOv5 trunk).
 
 Counterpart of `reid_tpu/utils/quantize.py`. The JAX package calibrates and
 executes through flax method interceptors; here calibration hooks every
@@ -10,10 +10,10 @@ executes through flax method interceptors; here calibration hooks every
   * every calibrated layer runs in int8: its input is quantized (round half
     to even, clip to +-127), accumulated s8 x s8 -> s32 exactly, rescaled
     by sx*sw in f32 and cast to the layer's dtype;
-  * stride-1 SE blocks with Cin and Cout multiples of 128 run as one fused
-    block (`ops/qblock.py`), and the other 3x3 stride-1 convs with both
-    channel counts multiples of 128 run on `ops/qconv.py` - the routing
-    order of `quantization_interceptor`;
+  * stride-1 SE blocks (`SEBasicBlock` only) with Cin and Cout multiples
+    of 128 run as one fused block (`ops/qblock.py`), and the other 3x3
+    stride-1 convs with both channel counts multiples of 128 run on
+    `ops/qconv.py` - the routing order of `quantization_interceptor`;
   * the remaining int8 layers (stem, 64-channel blocks, stride-2 convs, SE
     fcs of non-fused blocks, classifier) multiply an im2col by
     `torch._int_mm` on the card (cuBLAS s8 x s8 -> s32, exact; K and N
@@ -316,8 +316,9 @@ def make_qblock_params(block: SEBasicBlock, qstate: QuantState,
 
 
 def _fused(block: SEBasicBlock, qstate: QuantState, prefix: str) -> bool:
-    """`_qblock_route`'s test: stride 1, Cin and Cout multiples of 128, and
-    every conv of the block quantized."""
+    """`_qblock_route`'s test on an `SEBasicBlock` (no other block type is
+    fused): stride 1, Cin and Cout multiples of 128, and every conv of the
+    block quantized."""
     if block.stride != 1 or block.cin % 128 or block.planes % 128:
         return False
     rels = ("conv1", "conv2") + (("down_conv",) if block.downsample else ())

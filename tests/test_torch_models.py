@@ -1,17 +1,24 @@
 """SERes18-IBN of the port against the flax model in eval mode, from a
 random flax init carried across by the weight bridge: the whole model at
 80x40 crops in float32 and in bfloat16 (the default track embed), and one
-SEBasicBlock of each flavor at narrow widths in float32.
+SEBasicBlock of each flavor at narrow widths in float32 and in bfloat16.
 
 Tolerances:
   * float32: rtol = atol = 1e-4 (another convolution algorithm).
-  * bfloat16, against the jitted flax program: every element within 2^-6
-    of the tensor's largest magnitude (two bf16 ulps there) and a cosine
-    >= 0.9999 per row. Both frameworks compute each bf16 convolution in
-    f32 and round its output, but in another order and algorithm, so the
-    two differ by rounding at each of the 18 layers; at this input each
-    lies as far from the float32 model as the other (mean abs error
-    0.0031 for flax, 0.0034 for the port, on features up to 2.7)."""
+  * bfloat16, one block against the jitted flax block: bit-equal. XLA
+    keeps a bf16 conv's product in f32 where a BatchNorm reads it (it
+    drops the rounding between the conv and the norm's cast to f32), so
+    the port's convs that feed a BatchNorm compute in f32
+    (`Conv2d.keep_f32`); IBN reads conv1's product through a channel
+    split, which XLA rounds to bf16. Without `keep_f32` 78-85% of a
+    block's outputs are bit-equal.
+  * bfloat16, the whole model against the jitted flax program: every
+    element within 2^-7 of the tensor's largest magnitude (one bf16 ulp
+    there) and a cosine >= 0.99999 per row (read: 0.0059 and 0.0033 of
+    the largest, 1 - 7e-6). The two still differ by f32 rounding in the
+    reductions and GeM's power, which moves a bf16 rounding now and
+    then. Without `keep_f32` the features read 0.0088 of the largest and
+    a cosine of 1 - 1.7e-5, outside both limits."""
 
 import jax
 import jax.numpy as jnp
@@ -81,10 +88,10 @@ def test_seres18_matches_flax(tmp_path, dtype):
         if dtype == "float32":
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
             continue
-        assert np.abs(got - want).max() <= 2.0 ** -6 * np.abs(want).max()
+        assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
         cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
                                      * np.linalg.norm(want, axis=1))
-        assert cos.min() >= 0.9999, cos
+        assert cos.min() >= 0.99999, cos
 
 
 @pytest.mark.parametrize("ibn,down,stride,cin,planes",
@@ -102,6 +109,26 @@ def test_se_basic_block_matches_flax(ibn, down, stride, cin, planes):
         got = tb(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("ibn,down,stride,cin,planes",
+                         [(False, False, 1, 16, 16), (True, False, 1, 16, 16),
+                          (True, True, 2, 8, 16), (False, True, 1, 16, 32)])
+def test_se_basic_block_bf16_bit_equal_flax(ibn, down, stride, cin, planes):
+    block = JBlock(planes=planes, strides=stride, ibn=ibn, downsample=down,
+                   dtype=jnp.bfloat16)
+    x = np.random.default_rng(1).normal(size=(3, 8, 6, cin)).astype(
+        np.float32)
+    variables = _variables(block, x, 2)
+    want = jax.jit(lambda v, xx: block.apply(v, xx, train=False))(
+        variables, jnp.asarray(x).astype(jnp.bfloat16))
+    tb = SEBasicBlock(cin, planes, stride, ibn, down, dtype=torch.bfloat16)
+    load_flax_variables(tb, variables)
+    assert tb.conv1.keep_f32 is not ibn and tb.conv2.keep_f32
+    with torch.no_grad():
+        got = tb(torch.from_numpy(x).to(torch.bfloat16))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
 
 
 def test_build_model_rejects_unported_backbone():

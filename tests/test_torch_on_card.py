@@ -132,7 +132,10 @@ def block_params(rng, cin, cout, down, ibn, dev, mip=16):
                                    (1, 18, 32, 128, 128),
                                    (1, 9, 16, 256, 256),
                                    (1, 24, 40, 128, 128),
-                                   (1, 12, 20, 256, 256)])
+                                   (1, 12, 20, 256, 256),
+                                   (8, 32, 16, 128, 128),
+                                   (8, 16, 8, 512, 512),
+                                   (8, 16, 8, 256, 512)])
 def test_conv3x3_s8_matches_plain(cuda, shape):
     """Exact in bf16 and f32, one launch each. The shapes cover a tile of
     four whole images (8x4: 32 pixels an image) with Cout split over two
@@ -141,7 +144,10 @@ def test_conv3x3_s8_matches_plain(cuda, shape):
     channels), one image per tile (16x8), and the YOLOv5s detector's
     call sites, one image a call: at --det_size 288 512 (18x32 with 128
     channels, whose last box holds 2 of its 8 rows; 9x16 with 256, 1 of
-    8) and at 384 640 (24x40 and 12x20: box widths of no power of two)."""
+    8) and at 384 640 (24x40 and 12x20: box widths of no power of two);
+    and the ResNet trunks' sites at 256x128 crops: resnet50's layer2
+    (32x16 c128) and layer4 (16x8 c512), and baseline's layer4_0.conv1
+    (16x8, 256 -> 512, K1's one call with Cin != Cout on a track path)."""
     args = conv_inputs(np.random.default_rng(1), *shape, cuda)
     for dt in (torch.float32, torch.bfloat16):
         reset_launch_counts()

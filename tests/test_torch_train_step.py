@@ -28,12 +28,13 @@ eager JAX), so the norms keep their init.
     XBM ring and the step.
 
 Tolerances. The f32 forward: outputs, statistics and gradients within
-1e-4 of each tensor's largest magnitude. bf16: the port rounds each
-convolution's output to bf16 before its norm, where the compiled flax
-program keeps it in f32 (test_torch_models.py), so against the f32
-program its errors run up to 2.3x flax's bf16 ones: outputs, statistics
-and gradients within 3x flax's L2 error, the whole gradient at a cosine
->= 0.95 with f32 (flax's bf16 gradient: 0.970). Optimizers within 1e-6
+1e-4 of each tensor's largest magnitude. bf16, against the f32
+program: outputs, statistics and gradients within 3x flax's bf16 L2
+error, the whole gradient at a cosine >= 0.95 with f32. Since the port's
+convolutions that feed a norm keep their product in f32 as the compiled
+flax program does (test_torch_models.py), the port's errors run up to
+1.6x flax's and its gradient's cosine reads 0.970 (flax's: 0.970); when
+it rounded them to bf16 they ran up to 2.3x and 0.963. Optimizers within 1e-6
 relative. Three steps: every loss component within 1e-4 relative at
 each step; statistics, centers, DCC tables and the XBM ring within 1e-3
 of each tensor's largest magnitude; the whole parameter update and the
@@ -202,7 +203,7 @@ def test_train_forward_and_gradient_match_flax_bf16(variables,
     """bf16, each side measured against the f32 program: the port's
     outputs, statistics and gradients lie within 3x the L2 error of
     flax's bf16 program, tensor by tensor, and the whole gradient keeps a
-    cosine >= 0.95 with the f32 one (flax's: 0.970, the port's: 0.963)."""
+    cosine >= 0.95 with the f32 one (flax's: 0.970, the port's: 0.970)."""
     x = images(2)
     jgrads, feat_j, logits_j, stats_j = _jax_train_forward(
         variables, x, "bfloat16")

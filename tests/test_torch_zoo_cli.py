@@ -1,0 +1,146 @@
+"""The torchvision-style ResNets through the port's three CLIs against the
+JAX package's, one run each at the cheapest settings that reach the
+`--backbone` branch:
+
+  * `track_main --backbone baseline --int8` on test_torch_cli's 16-frame
+    scene at 64x32 crops (--chunk 8), both sides from one flax init and
+    one QuantState (JAX's, handed to the port), the JAX kernel routes
+    forced on through their references: the same (frame, id) rows with
+    boxes within 0.02 px; the int8 conv route taken at each of baseline's
+    ten K1 sites (per call, counted where it is patched) and the fused SE
+    block never, on both sides; the tracker's feature width from the
+    probe forward, 512 + classes.
+  * `inference_main --backbone agw` on test_torch_retrieval's Market-style
+    tree at 80x40 (f32, re-ranking on; D = 2048 + 6), from one random
+    train state whose non-local `w_bn` scales are made non-zero (an orbax
+    checkpoint for JAX, its `.npz` for the port): CMC identical at every
+    rank, mAP within 1e-6.
+
+The `train_main --backbone resnet50` run is in
+tests/test_torch_baseline_train.py."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_baseline import BASELINE_K1
+from test_torch_cli import read_mot, write_scene
+from test_torch_quantize import force_jax_routes
+from test_torch_retrieval import write_market_tree
+from test_torch_train_data import two_torch_threads  # noqa: F401
+
+
+def test_track_main_baseline_int8_matches_jax(tmp_path, monkeypatch):
+    import reid_tpu.utils.quantize as jqz
+    import reid_tpu_torch.utils.quantize as tqz
+    from reid_tpu.cli import track_main as jax_track_main
+    from reid_tpu.models import build_model as jbuild
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.utils.flax_bridge import (quant_state_from_flax,
+                                                  save_npz)
+
+    model = jbuild("baseline", num_classes=16, dtype=jnp.bfloat16)
+    variables = jax.jit(lambda k, x: model.init(k, x, train=True))(
+        jax.random.PRNGKey(0), jnp.zeros((2, 64, 32, 3), jnp.bfloat16))
+    ckpt = str(tmp_path / "init.npz")
+    save_npz(ckpt, jax.tree_util.tree_map(np.asarray, variables))
+
+    fdir, det = write_scene(tmp_path)
+    flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
+             "--crop_hw", "64", "32", "--num_classes", "16", "--max_dets",
+             "8", "--int8", "--backbone", "baseline"]
+    calls = force_jax_routes(monkeypatch)
+    qstates = []
+    jquantize = jqz.quantize
+
+    def keep_qstate(*a, **kw):
+        qstates.append(jquantize(*a, **kw))
+        return qstates[-1]
+    monkeypatch.setattr(jqz, "quantize", keep_qstate)
+    out_j = str(tmp_path / "jax.txt")
+    n_j = jax_track_main(flags + ["--save_txt", out_j])
+    assert calls["qconv"] > 0 and calls["qblock"] == 0
+
+    # the port takes JAX's QuantState and counts its int8 routes per call
+    monkeypatch.setattr(tqz, "quantize", lambda model, batches, select=None:
+                        quant_state_from_flax(qstates[0], "cpu"))
+    sites = {}
+    k1 = tqz.conv3x3_s8
+
+    def counted(x, wt, scale, out_dtype=torch.bfloat16):
+        key = (tuple(x.shape[1:]), wt.shape[0])
+        sites[key] = sites.get(key, 0) + 1
+        return k1(x, wt, scale, out_dtype)
+    monkeypatch.setattr(tqz, "conv3x3_s8", counted)
+    monkeypatch.setattr(tqz, "se_basic_block_s8", None)
+    widths = []
+    from reid_tpu_torch.tracking import pipeline as tpipe
+    init = tpipe.TrackingPipeline.__init__
+
+    def spy(self, cfg, embed_fn, feat_dim, *a, **kw):
+        widths.append(feat_dim)
+        init(self, cfg, embed_fn, feat_dim, *a, **kw)
+    monkeypatch.setattr(tpipe.TrackingPipeline, "__init__", spy)
+    out_t = str(tmp_path / "torch.txt")
+    n_t = cli.track_main(flags + ["--save_txt", out_t, "--ckpt", ckpt],
+                         device="cpu")
+    assert widths == [512 + 16]
+    # the ten K1 sites at 64x32 crops (per image: H, W, Cin; and Cout):
+    # three at 8x4 c128, three at 4x2 c256, layer4_0.conv1 256 -> 512 and
+    # three at 4x2 c512, each taking every embed call (the probe forward
+    # and one call a chunk)
+    n = sites[((4, 2, 256), 512)]
+    assert n >= 3
+    assert sites == {((8, 4, 128), 128): 3 * n, ((4, 2, 256), 256): 3 * n,
+                     ((4, 2, 256), 512): n, ((4, 2, 512), 512): 3 * n}
+    assert 3 + 3 + 1 + 3 == len(BASELINE_K1)
+    assert n_t == n_j > 20
+    rj, rt = read_mot(out_j), read_mot(out_t)
+    np.testing.assert_array_equal(rt[:, :2], rj[:, :2])
+    np.testing.assert_allclose(rt[:, 2:6], rj[:, 2:6], atol=0.02)
+
+
+@pytest.fixture(scope="module")
+def market_tree(tmp_path_factory):
+    return write_market_tree(str(tmp_path_factory.mktemp("m") / "market"))
+
+
+def test_inference_main_agw_matches_jax(market_tree, tmp_path):
+    import reid_tpu.config as jcfg
+    from reid_tpu.cli import inference_main as jax_inference_main
+    from reid_tpu.models import build_model as jbuild
+    from reid_tpu.train.state import create_train_state
+    from reid_tpu.utils import save_checkpoint
+    from reid_tpu_torch.cli import inference
+    from reid_tpu_torch.utils.flax_bridge import save_npz
+
+    cfg = jcfg.Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=6))
+    state = create_train_state(jax.random.PRNGKey(0),
+                               jbuild("agw", num_classes=6, num_cams=6),
+                               cfg, 1, input_shape=(2, 80, 40, 3))
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(np.asarray, state.params)
+    for nl in ("nl2", "nl3"):
+        scale = params[nl]["w_bn"]["scale"]
+        params[nl]["w_bn"]["scale"] = rng.normal(
+            0, 0.1, scale.shape).astype(np.float32)
+    state = state.replace(params=jax.tree_util.tree_map(jnp.asarray,
+                                                        params))
+    ckpt = save_checkpoint(str(tmp_path / "ckpt"), state)
+    npz = str(tmp_path / "agw.npz")
+    save_npz(npz, {"params": params, "batch_stats": jax.tree_util.tree_map(
+        np.asarray, state.batch_stats)})
+    flags = ["--root", market_tree, "--height", "80", "--width", "40",
+             "--bs", "8", "--backbone", "agw"]
+    keep = {}
+    cmc_j, map_j = jax_inference_main(flags + ["--ckpt", ckpt])
+    cmc_t, map_t = inference(flags + ["--ckpt", npz], device="cpu",
+                             keep=keep)
+    assert keep["qf"].shape[1] == 2048 + 6
+    np.testing.assert_array_equal(cmc_t, np.asarray(cmc_j))
+    assert abs(map_t - map_j) <= 1e-6, (map_t, map_j)
