@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 11 min of command
+    python3 chip_smoke.py             # on one card, about 13 min of command
     python3 chip_smoke.py --profile   # the same, tracing the track runs,
                                       # a chunk of each stream operating
                                       # point and the retrieval run
@@ -231,6 +231,25 @@ The torchvision-style ResNets, in the same run:
               last, five traced steps (`step_profile`): launches, device
               time and the idle share of a step, after one step under the
               sync debug mode "error".
+CARes18 (triplet attention) and EMARes18 (EMA), in the same run:
+ 21. kernels  K1 at ATTN_K1_SITES, B = 2048 crops through each quantized
+              bf16 trunk (after phase 16): cares18's block22.conv1 (32x16
+              c128) and emares18's block41.conv1 (16x8, 256 -> 512), exact
+              against the plain version and timed as in phase 3; each
+              trunk's K1 route on exactly 10 convs, no fused block;
+ 22. track    `--backbone cares18`, then `emares18`, as phase 17: bf16 then
+              `--int8`, fps, stage split and launches: K1 exactly 10 an
+              embed call, K2 none;
+ 23. embed    both in bf16, card against CPU on 16 crops, and each
+              `--int8` embed against its f32 embed on the card, as phase
+              18;
+ 24. train    `train_main --backbone cares18 --renorm` on phase 20's tree
+              (after phase 20's card-vs-CPU step): step period, images/s,
+              peak memory, every BatchRenorm counter at the steps taken;
+              phase 14's card-vs-CPU step for cares18 with BatchRenorm
+              past warm-up and for emares18 (limits as resnet50's); last
+              (after phase 20's), five traced steps of the renorm run with
+              the sync check, as phase 20.
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -2245,10 +2264,14 @@ def phase_train(tmp):
     return state, cfg, dataset, copy.deepcopy(state), clock.batches
 
 
-def phase_train_card_vs_cpu(backbone="seres18", spread=False):
+def phase_train_card_vs_cpu(backbone="seres18", spread=False,
+                            renorm=False):
     """One f32 train step from one state on the card and on the CPU:
-    `backbone` (SERes18, or ResNet50) at 256x128, 751 classes, a batch
-    of 16 (4 ids x 4) of uint8
+    `backbone` (SERes18, CARes18, EMARes18 or ResNet50; with `renorm` its
+    BatchRenorm trunk, every counter past warm-up at 750 steps, so r and
+    d range over [1/2, 2] and [-2.5, 2.5], not fixed at 1 and 0) at
+    256x128, 751 classes, a
+    batch of 16 (4 ids x 4) of uint8
     images under the same augmentation draws, TF32 off. The largest
     relative differences of the loss (1e-4), the BatchNorm statistics,
     the centers and the DCC tables (1e-3 of each tensor's largest
@@ -2282,11 +2305,19 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False):
 
     b, c = CARD_CPU_BATCH, N_CLASSES
     cfg = Config(model=ModelConfig(backbone=backbone, num_classes=c,
-                                   dtype="float32"),
+                                   dtype="float32", renorm=renorm),
                  train=TrainConfig(batch_size=b, num_instances=4))
     variables = flax_variables(build_model(
         backbone, c, dtype=torch.float32, device="cpu",
-        generator=torch.Generator().manual_seed(0)))
+        generator=torch.Generator().manual_seed(0), renorm=renorm))
+
+    def past_warmup(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                past_warmup(v)
+            elif k == "steps":
+                node[k] = np.int32(750)
+    past_warmup(variables["batch_stats"])
     rng = np.random.default_rng(0)
     lut = rng.normal(size=(2, c, c)).astype(np.float32)
     lut /= np.linalg.norm(lut, axis=2, keepdims=True)
@@ -2297,7 +2328,8 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False):
     out = {}
 
     def one_step(dev):
-        model = build_model(backbone, c, dtype=torch.float32, device=dev)
+        model = build_model(backbone, c, dtype=torch.float32, device=dev,
+                            renorm=renorm)
         load_flax_variables(model, variables)
         state = create_train_state(model, cfg, 100,
                                    torch.Generator().manual_seed(2))
@@ -2364,8 +2396,10 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False):
         res.update(cpu_spread=cpu_cpu, cpu_aten_step_s=out["cpu_aten"]["s"])
     res["limits"] = limits
     emit("train step card vs cpu" + ("" if backbone == "seres18"
-                                     else f" {backbone}"),
-         backbone=backbone, batch=b, classes=c, hw=[256, 128], **res)
+                                     else f" {backbone}")
+         + (" --renorm" if renorm else ""),
+         backbone=backbone, renorm=renorm, batch=b, classes=c,
+         hw=[256, 128], **res)
     assert res["loss_rel"] <= 1e-4, res
     assert res["grad_rel_norm"] <= limits["grad_rel_norm"], res
     assert res["update_cosine"] >= limits["update_cosine"] and \
@@ -2504,6 +2538,12 @@ ZOO_K1_SITES = [("resnet50", "layer2_1/conv2", (32, 16, 128, 128)),
                 ("baseline", "layer4_0/conv1", (16, 8, 256, 512))]
 ZOO_K1_COUNT = {"baseline": 10, "resnet50": 11, "agw": 11}
 ZOO_TRAIN_IDS = 64
+# the SERes18 family's other block attentions: K1 on the 10 stride-1 3x3
+# convs with Cin and Cout multiples of 128, K2 on none (it fuses the SE
+# gate only)
+ATTN_K1_SITES = [("cares18", "block22/conv1", (32, 16, 128, 128)),
+                 ("emares18", "block41/conv1", (16, 8, 256, 512))]
+ATTN_K1_COUNT = {"cares18": 10, "emares18": 10}
 
 
 def nonzero_w_bn(model, seed=3, std=0.1):
@@ -2520,23 +2560,26 @@ def nonzero_w_bn(model, seed=3, std=0.1):
     return model
 
 
-def phase_zoo_kernels(kind, crops):
-    """K1 at ZOO_K1_SITES on the inputs that embedding `crops` (B = 2048)
-    through the quantized bf16 trunk gives them: exact against the plain
-    version and timed as in phase 3; the K1 route on exactly
-    ZOO_K1_COUNT convs of each trunk and no fused SE block."""
+def phase_zoo_kernels(kind, crops, table=None, counts=None):
+    """K1 at the sites of `table` (ZOO_K1_SITES) on the inputs that
+    embedding `crops` (B = 2048) through the quantized bf16 trunk gives
+    them: exact against the plain version and timed as in phase 3; the K1
+    route on exactly `counts` (ZOO_K1_COUNT) convs of each trunk and no
+    fused SE block."""
     import torch
     from reid_tpu_torch.utils.quantize import QSEBasicBlock, quantize_input
 
+    table = ZOO_K1_SITES if table is None else table
+    counts = ZOO_K1_COUNT if counts is None else counts
     rows = []
-    for backbone in ("resnet50", "baseline"):
-        sites = [(p, shp) for b, p, shp in ZOO_K1_SITES if b == backbone]
+    for backbone in dict.fromkeys(b for b, _, _ in table):
+        sites = [(p, shp) for b, p, shp in table if b == backbone]
         qm, seen = quantized_trunk(crops.device, torch.bfloat16, crops[:32],
                                    crops, backbone=backbone,
                                    sites=[p for p, _ in sites])
         routed = [n for n, m in qm.named_modules()
                   if getattr(m, "route", False)]
-        assert len(routed) == ZOO_K1_COUNT[backbone], routed
+        assert len(routed) == counts[backbone], routed
         assert not any(isinstance(m, QSEBasicBlock) for m in qm.modules())
         with torch.inference_mode():
             for site, (h, w, cin, cout) in sites:
@@ -2554,37 +2597,55 @@ def phase_zoo_kernels(kind, crops):
     return rows
 
 
-def phase_track_zoo(tmp, n_frames, chunk):
-    """The track path with `--backbone resnet50` at phase 4's operating
+def phase_track_zoo(tmp, n_frames, chunk, backbone="resnet50",
+                    k1_per_call=None):
+    """The track path with `--backbone backbone` at phase 4's operating
     point, --chunk `chunk`: the default bf16 embed (no kernel of ours)
-    and `--int8` (K1 at the 11 sites, no fused block); fps and the stage
-    split of each."""
+    and `--int8` (K1 at the backbone's sites, no fused block); fps and the
+    stage split of each. With `k1_per_call`, K1's launches must be
+    exactly that many an embed call (the calls counted at the 256 -> 512
+    site, which each trunk of the SERes18 family has once)."""
     fdir, det = write_scene(tmp, n_frames)
     base = ["--detections", det, "--frames_dir", fdir, "--backbone",
-            "resnet50", "--max_dets", "64", "--num_classes", "751",
+            backbone, "--max_dets", "64", "--num_classes", "751",
             "--crop_hw", "256", "128", "--chunk", str(chunk)]
     runs = {}
     for mode in ("bf16", "int8"):
         run = run_track(base + (["--int8"] if mode == "int8" else [])
                         + ["--save_txt", os.path.join(tmp, mode + ".txt")])
         run.pop("affines")
-        emit(f"track resnet50 {mode}", chunk=chunk, **run)
+        if mode == "int8" and k1_per_call:
+            calls = run["site_launches"].get(
+                "conv3x3_s8 [16, 8, 256, 512]", 0)
+            run.update(embed_calls=calls,
+                       k1_per_embed_call=run["launches"].get(
+                           "conv3x3_s8", 0) / max(calls, 1),
+                       k2_launches=run["launches"].get(
+                           "se_basic_block_s8", 0))
+        emit(f"track {backbone} {mode}", chunk=chunk, **run)
         assert run["rows"] > 0 and run["distinct_ids"] >= 40, run
         runs[mode] = run
     assert not runs["bf16"]["launches"], runs["bf16"]["launches"]
     assert runs["int8"]["launches"].get("conv3x3_s8", 0) > 0, runs["int8"]
     assert "se_basic_block_s8" not in runs["int8"]["launches"]
+    if k1_per_call:
+        r = runs["int8"]
+        assert r["embed_calls"] >= 3 and \
+            r["k1_per_embed_call"] == k1_per_call, r["launches"]
     return runs["int8"]
 
 
-def phase_zoo_embed():
-    """Eval mode, card against CPU: baseline and agw (non-local `w_bn`
-    non-zero) in bf16 embed the same 16 crops on both, [feat || logits]
-    held by cosine (>= 0.999 a row) and by the largest difference (within
-    2^-5 of the largest magnitude). Then the `--int8` embed (the track
-    CLI's `build_embed`) against the f32 embed of the same weights on the
-    card, for each of the three backbones: cosine >= 0.95 a row; and
-    baseline's K1 launches in its int8 embed call."""
+def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
+                    label="embed zoo"):
+    """Eval mode, card against CPU: the `card_vs_cpu` backbones (agw with
+    its non-local `w_bn` non-zero) in bf16 embed the same 16 crops on
+    both, [feat || logits] held by cosine (>= 0.999 a row) and by the
+    largest difference (within 2^-5 of the largest magnitude). Then the
+    `--int8` embed (the track CLI's `build_embed`) against the f32 embed
+    of the same weights on the card, for each backbone of `int8_counts`
+    (ZOO_K1_COUNT): cosine >= 0.95 a row, and exactly its count of K1
+    launches in its int8 embed call and none of K2's. Returns each
+    backbone's launches at its call sites in that call."""
     import torch
     from reid_tpu_torch import cli
     from reid_tpu_torch.models import build_model
@@ -2599,8 +2660,9 @@ def phase_zoo_embed():
         f, lg = model(x)
         return torch.cat([f.float(), lg.float()], 1)
 
+    int8_counts = ZOO_K1_COUNT if int8_counts is None else int8_counts
     with torch.inference_mode():
-        for backbone in ("baseline", "agw"):
+        for backbone in card_vs_cpu:
             cpu = build_model(backbone, N_CLASSES, dtype=torch.bfloat16,
                               device="cpu")
             if backbone == "agw":
@@ -2617,7 +2679,7 @@ def phase_zoo_embed():
             del cpu, card
     site_sets = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for backbone in ("baseline", "resnet50", "agw"):
+        for backbone in int8_counts:
             model = build_model(backbone, N_CLASSES, dtype=torch.float32,
                                 device="cpu")
             if backbone == "agw":
@@ -2644,23 +2706,25 @@ def phase_zoo_embed():
                                 if k.startswith("conv3x3_s8")))
             del model, fn
     torch.cuda.empty_cache()
-    emit("embed zoo", crops=16, **res)
-    for backbone in ("baseline", "agw"):
+    emit(label, crops=16, **res)
+    for backbone in card_vs_cpu:
         r = res[f"{backbone}_card_vs_cpu"]
         assert r["min_cosine"] >= 0.999 and r["max_rel_err"] <= 2 ** -5, r
-    for backbone, n in ZOO_K1_COUNT.items():
+    for backbone, n in int8_counts.items():
         r = res[f"{backbone}_int8_vs_f32"]
         assert r["k1_launches"] == n and r["min_cosine"] >= 0.95, r
         assert not any(k.startswith("se_basic_block_s8")
                        for k in site_sets[backbone])
-    return site_sets["baseline"]
+    return site_sets
 
 
-def phase_train_zoo(tmp):
-    """`cli.train_main --backbone resnet50` on the card: one epoch of a
-    synthetic Market-shaped tree of ZOO_TRAIN_IDS ids x TRAIN_PER_ID
-    images (17 steps of --bs 64 --instance 4, bf16, 256x128): step period
-    on the device's clock, images/s, peak memory, the logged loss; the
+def phase_train_zoo(tmp, backbone="resnet50", renorm=False):
+    """`cli.train_main --backbone backbone [--renorm]` on the card: one
+    epoch of a synthetic Market-shaped tree of ZOO_TRAIN_IDS ids x
+    TRAIN_PER_ID images (17 steps of --bs 64 --instance 4, bf16,
+    256x128), written once for the phases that train on it: step period
+    on the device's clock, images/s, peak memory, the logged loss; with
+    `renorm`, every BatchRenorm's `steps` counter at the steps taken. The
     state and the run's batches for `step_profile`."""
     import copy
     import statistics
@@ -2670,9 +2734,12 @@ def phase_train_zoo(tmp):
     from reid_tpu_torch.data.datasets import write_synthetic_tree
     from reid_tpu_torch.train import image_train
 
+    from reid_tpu_torch.models.layers import BatchRenorm
+
     market = os.path.join(tmp, "market_zoo")
-    write_synthetic_tree(market, "market1501", ZOO_TRAIN_IDS, TRAIN_PER_ID,
-                         query_per_id=1, gallery_per_id=2)
+    if not os.path.isdir(market):
+        write_synthetic_tree(market, "market1501", ZOO_TRAIN_IDS,
+                             TRAIN_PER_ID, query_per_id=1, gallery_per_id=2)
     clock = TrainClock()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2681,8 +2748,9 @@ def phase_train_zoo(tmp):
             patched(image_train, "make_train_loader", clock.make_loader), \
             patched(image_train, "train_cnn", clock.train_cnn):
         state = cli.train_main(
-            ["--root", market, "--backbone", "resnet50", "--epochs", "1",
-             "--bs", "64", "--instance", "4"], device="cuda",
+            ["--root", market, "--backbone", backbone, "--epochs", "1",
+             "--bs", "64", "--instance", "4"]
+            + (["--renorm"] if renorm else []), device="cuda",
             ckpt_dir=os.path.join(tmp, "ckpt_zoo"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2692,7 +2760,12 @@ def phase_train_zoo(tmp):
     assert all(np.isfinite(losses)), losses
     for p in state.model.parameters():
         assert bool(torch.isfinite(p).all())
-    emit("train resnet50 bf16", ids=ZOO_TRAIN_IDS, images=len(dataset),
+    counters = [int(m.steps) for m in state.model.modules()
+                if isinstance(m, BatchRenorm)]
+    assert len(counters) == (20 if renorm else 0), counters
+    assert set(counters) <= {len(clock.events)}, counters
+    emit(f"train {backbone}{' --renorm' if renorm else ''} bf16",
+         ids=ZOO_TRAIN_IDS, images=len(dataset), renorm_steps=counters[:1],
          batch=64, steps=len(clock.events), wall_s=wall,
          step_ms_median=med, step_ms_min=min(steps),
          step_ms_max=max(steps), images_per_s=64 * 1e3 / med,
@@ -2730,6 +2803,7 @@ def main():
     rows = phase_kernels(kind, torch.bfloat16, crops[:32], crops, "track",
                          variants=True)
     zoo_rows = phase_zoo_kernels(kind, crops)
+    attn_rows = phase_zoo_kernels(kind, crops, ATTN_K1_SITES, ATTN_K1_COUNT)
     del crops
     torch.cuda.empty_cache()
     probe_rows, probe_counts = phase_probe(kind)
@@ -2746,17 +2820,27 @@ def main():
     phase_embed()
     with tempfile.TemporaryDirectory() as tmp:
         zoo_track = phase_track_zoo(tmp, 64, 32)
-    baseline_sites = phase_zoo_embed()
+    baseline_sites = phase_zoo_embed()["baseline"]
     for row in zoo_rows:
         set_launches([row], zoo_track["site_launches"]
                      if "resnet50" in row["name"] else baseline_sites)
+    # phases 21-23: the triplet and EMA attention backbones
+    attn_track = {}
+    for backbone in ATTN_K1_COUNT:
+        with tempfile.TemporaryDirectory() as tmp:
+            attn_track[backbone] = phase_track_zoo(
+                tmp, 64, 32, backbone, k1_per_call=ATTN_K1_COUNT[backbone])
+    for row in attn_rows:
+        set_launches([row], attn_track[row["name"].split()[1]][
+            "site_launches"])
+    phase_zoo_embed(tuple(ATTN_K1_COUNT), ATTN_K1_COUNT, "embed attention")
     # K1/K2 launches at their call sites on the track path; K3-K5 (here and
     # in the probe's rows) and K1's probe rows: the probe path's launches
     track_rows = [r for r in rows if r["path"] == "track"]
     set_launches(track_rows, chunked["site_launches"])
     for row in [r for r in rows if r["path"] == "qconv probe"] + probe_rows:
         row["launches"] = probe_counts[row["name"].split()[0]]
-    rows += probe_rows + det_rows + stream_rows + zoo_rows
+    rows += probe_rows + det_rows + stream_rows + zoo_rows + attn_rows
 
     query, gallery, make_s = market_splits()
     keep, counts, _ = phase_retrieval(
@@ -2816,6 +2900,11 @@ def main():
             row["site_continual_run"] = checks[kname]["site"]
         zoo_state, zoo_cfg, zoo_batches, zoo_step_ms = phase_train_zoo(tmp)
         phase_train_card_vs_cpu("resnet50", spread=True)
+        # phase 24: CARes18 with BatchRenorm on the same tree
+        ca_state, ca_cfg, ca_batches, ca_step_ms = phase_train_zoo(
+            tmp, "cares18", renorm=True)
+        phase_train_card_vs_cpu("cares18", renorm=True)
+        phase_train_card_vs_cpu("emares18")
         # traced last: a trace slows the process's later launches
         emit("train step profile", **step_profile(trained, cfg, batches))
         del trained, batches
@@ -2824,6 +2913,11 @@ def main():
              device_idle_share=1 - prof["device_ms_per_step"] / zoo_step_ms,
              **prof)
         del zoo_state, zoo_batches
+        prof = step_profile(ca_state, ca_cfg, ca_batches)
+        emit("train step profile cares18 --renorm", step_ms_median=ca_step_ms,
+             device_idle_share=1 - prof["device_ms_per_step"] / ca_step_ms,
+             **prof)
+        del ca_state, ca_batches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6/K7 on the continual run: its launches, and each held against its

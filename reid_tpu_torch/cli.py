@@ -8,10 +8,11 @@ runs the same program on the CPU with the kernels' plain versions.
   * `track_main`: a frame directory, video file or webcam index in ->
     detections (a MOT det file with `--detections`, else the built-in
     detector: CenterNetLite, or YOLOv5 with `--detector yolov5`, its trunk
-    in int8 under `--int8`) -> the `--backbone` embed (seres18, baseline,
-    resnet50 or agw; bf16, or int8 with `--int8`), whose width the
-    tracker takes from a probe forward -> tracker -> MOT txt [+ annotated
-    frames with `--save_vid`] [+ CLEAR/Identity/HOTA against `--gt`].
+    in int8 under `--int8`) -> the `--backbone` embed (seres18, cares18,
+    emares18, baseline, resnet50 or agw; bf16, or int8 with `--int8`),
+    whose width the tracker takes from a probe forward -> tracker -> MOT
+    txt [+ annotated frames with `--save_vid`] [+ CLEAR/Identity/HOTA
+    against `--gt`].
     Camera-motion compensation (botsort's default, `--gmc on|off`)
     estimates each chunk's affines on the device; the step path (`--chunk
     1`, and every run with a built-in detector or `--save_vid`) estimates
@@ -33,10 +34,13 @@ runs the same program on the CPU with the kernels' plain versions.
     `checkpoint/cnn_net_checkpoint_{dataset}.npz` (where the JAX package
     writes orbax), `--ckpt` warm start, `--continual` pseudo-labelling of
     `--target_dataset` and continual training, `--export` a `.pt2`
-    serving artifact. One device; `--renorm` (BatchRenorm) is not ported.
+    serving artifact. One device. `--renorm` puts BatchRenorm into the
+    SERes18 family's trunk (the JAX package takes the flag and drops it);
+    a ResNet backbone refuses it. The serving entries read a `--renorm`
+    checkpoint into plain BatchNorm, as the JAX package does.
 
-`--backbone` takes the names `models.build_model` has (seres18, baseline,
-resnet50, agw); the others raise KeyError.
+`--backbone` takes the names `models.build_model` has (seres18, cares18,
+emares18, baseline, resnet50, agw); the others raise KeyError.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
@@ -535,7 +539,7 @@ def _train_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--cam_factor", type=float, default=-1.0)
     p.add_argument("--renorm", action="store_true",
-                   help="BatchRenorm: not ported, refused")
+                   help="BatchRenorm in the SERes18 family's trunk")
     p.add_argument("--xbm", action="store_true")
     p.add_argument("--continual", action="store_true")
     p.add_argument("--target_dataset", default="dukemtmc")
@@ -567,7 +571,8 @@ def _train_cfg(args, num_classes: int):
     n_cams = {"market1501": 6, "dukemtmc": 8, "veri": 20}.get(args.dataset, 6)
     return Config(
         model=ModelConfig(backbone=args.backbone, num_classes=num_classes,
-                          num_cams=n_cams, cam_factor=args.cam_factor),
+                          num_cams=n_cams, cam_factor=args.cam_factor,
+                          renorm=args.renorm),
         loss=LossConfig(margin=args.margin, center_lamda=args.center_lamda,
                         epsilon=args.epsilon, tao=args.temperature,
                         xbm=args.xbm),
@@ -586,7 +591,11 @@ def train_main(argv=None, device: Optional[str] = "cuda",
     p = _train_parser()
     args = p.parse_args(argv)
     if args.renorm:
-        p.error("--renorm: BatchRenorm is not ported")
+        from .models.factory import supports_renorm
+        if not supports_renorm(args.backbone):
+            p.error(f"--renorm: backbone '{args.backbone}' has no "
+                    "BatchRenorm (the SERes18 family has: seres18, cares18, "
+                    "emares18)")
     from .data.dataset import ReIDDataset
     from .data.datasets import build_dataset
     from .train.image_train import (produce_pseudo_data, train_cnn,

@@ -131,6 +131,7 @@ class ModelConfig:
     feat_dim: int = 512
     cam_factor: float = -1.0           # scale of learnable per-camera bias
                                        # (ref SERes18_IBN.py:198,248)
+    renorm: bool = False               # BatchRenorm instead of BatchNorm
     dtype: str = "bfloat16"            # compute dtype; params always float32
 
 

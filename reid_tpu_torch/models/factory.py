@@ -1,6 +1,7 @@
 """Model factory - name -> module. Counterpart of
 `reid_tpu/models/factory.py:build_model` for the backbones the port has:
-seres18, baseline, resnet50 and agw."""
+the SERes18 family (seres18, cares18, emares18) and the torchvision-style
+ResNets (baseline, resnet50, agw)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ BOTTLENECK50 = dict(block="bottleneck", blocks=(3, 4, 6, 3))
 # name -> (module, its arguments besides num_classes, num_cams and dtype)
 MODELS = {
     "seres18": (SERes18IBN, {}),
+    # CARes18: the same skeleton with triplet attention blocks
+    "cares18": (SERes18IBN, dict(attention="triplet")),
+    # EMARes18: efficient multi-scale attention blocks
+    "emares18": (SERes18IBN, dict(attention="ema")),
     # ft_baseline: ResNet18 + ClassBlock
     "baseline": (ResNetReID, dict(block="basic", blocks=(2, 2, 2, 2))),
     # ft_net: ResNet50 + ClassBlock
@@ -25,16 +30,31 @@ MODELS = {
 }
 
 
+def supports_renorm(name: str) -> bool:
+    """Whether backbone `name` has the BatchRenorm option: the SERes18
+    family does, the ResNets (here and in the JAX package) do not."""
+    return name in MODELS and MODELS[name][0] is SERes18IBN
+
+
 def build_model(name: str, num_classes: int, num_cams: int = 6,
                 dtype=torch.float32, device="cuda",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                renorm: bool = False):
     """Build an eval-mode model by backbone name on `device`, initialized
-    from `generator` (a fresh one seeded 0 when None)."""
+    from `generator` (a fresh one seeded 0 when None). `renorm` puts
+    BatchRenorm into the SERes18 family's trunk; the ResNets have no such
+    option (nor in the JAX package) and refuse it."""
     if name not in MODELS:
         raise KeyError(f"backbone '{name}' is not ported yet; have "
                        f"{sorted(MODELS)}")
+    cls, kw = MODELS[name]
+    if renorm:
+        if not supports_renorm(name):
+            raise ValueError(f"renorm: backbone '{name}' has no BatchRenorm "
+                             "option (the SERes18 family has: seres18, "
+                             "cares18, emares18)")
+        kw = dict(kw, renorm=True)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    cls, kw = MODELS[name]
     model = cls(num_classes=num_classes, num_cams=num_cams, dtype=dtype, **kw)
     return model.init_weights(generator).to(device).eval()

@@ -2,11 +2,12 @@
 package.
 
 Counterparts of `reid_tpu/models/layers.py`: `InstanceNorm`, `IBN`,
-`SEBlock`, `GeM`, BatchNorm through `make_norm2d` (train and eval mode;
-BatchRenorm is not ported), `conv3x3` / `conv1x1` and `max_pool_same`; and
-for the
-detectors flax's `nn.silu`, `nn.ConvTranspose(padding="SAME")` and the
-2x nearest `jax.image.resize`. Activations are
+`LBN1D`, `SEBlock`, `GeM`, `AttentionPooling`, `MetaAconC1D`, BatchNorm
+or `BatchRenorm` through `make_norm2d` (train and eval mode),
+`BatchRenormNonIID`, `conv3x3` / `conv1x1` and `max_pool_same`; flax's
+`nn.LayerNorm` and `nn.GroupNorm`; and for the detectors flax's
+`nn.silu`, `nn.ConvTranspose(padding="SAME")` and the 2x nearest
+`jax.image.resize`. Activations are
 (N, H, W, C) at every public function, as in the flax modules; a conv
 permutes to PyTorch's NCHW view of the same memory (channels-last), so no
 copy is made. Each module computes at its `dtype` and keeps its parameters
@@ -20,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -165,48 +167,58 @@ def upsample2_nearest(x: torch.Tensor) -> torch.Tensor:
 
 
 class Linear(nn.Linear):
-    """Bias-free dense layer (flax `nn.Dense(use_bias=False)`);
-    `keep_f32` as `Conv2d`'s: a BatchNorm reads the product, which the
-    compiled JAX program then keeps in f32."""
+    """Dense layer (flax `nn.Dense`), bias-free unless `bias`; `keep_f32`
+    as `Conv2d`'s: a BatchNorm reads the product, which the compiled JAX
+    program then keeps in f32 (with a bias: the product rounded to
+    `dtype`, the bias added in f32)."""
 
     def __init__(self, cin: int, cout: int, dtype=torch.float32,
-                 keep_f32: bool = False):
-        super().__init__(cin, cout, bias=False)
+                 keep_f32: bool = False, bias: bool = False):
+        super().__init__(cin, cout, bias=bias)
         self.dtype = dtype
         self.keep_f32 = keep_f32
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None,
-                         std: Optional[float] = None):
-        if std is None:
+                         std: Optional[float] = None, init: str = "kaiming"):
+        if std is not None:
+            nn.init.normal_(self.weight.data, 0.0, std, generator=generator)
+        elif init == "kaiming":
             kaiming_(self.weight.data, self.out_features, generator)
         else:
-            nn.init.normal_(self.weight.data, 0.0, std, generator=generator)
+            lecun_(self.weight.data, self.in_features, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias.data)
 
     def forward(self, x):
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.bias is not None:
+            y = F.linear(x, w)
+            if self.keep_f32:
+                return y.to(torch.float32) + self.bias.to(self.dtype).to(
+                    torch.float32)
+            return y + self.bias.to(self.dtype)
         if self.keep_f32:
             x, w = x.to(torch.float32), w.to(torch.float32)
         return F.linear(x, w)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis (flax `nn.BatchNorm`, momentum 0.9):
-    f32 arithmetic, output in `dtype`.
+    """BatchNorm over the last axis (flax `nn.BatchNorm`, momentum 0.9
+    unless `momentum`): f32 arithmetic, output in `dtype`.
 
     By default (flax's use_running_average) it normalizes with the
     running statistics. With `train` (flax's train=True) it takes the
     batch statistics as flax 0.12's `_compute_stats` does: in f32 over
     every axis but the last, mean and E[x^2], var = max(E[x^2] - mean^2,
     0), biased; it normalizes with them and folds the same biased var into
-    the running var (ra = 0.9 ra + 0.1 batch). `F.batch_norm` folds the
+    the running var (ra = m ra + (1 - m) batch). `F.batch_norm` folds the
     unbiased var and is not used."""
 
-    momentum = 0.9
-
     def __init__(self, c: int, use_bias: bool = True, eps: float = 1e-5,
-                 dtype=torch.float32):
+                 dtype=torch.float32, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c)) if use_bias else None
@@ -234,9 +246,131 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
-def make_norm2d(c: int, dtype=torch.float32) -> BatchNorm:
-    """BatchNorm over (N, H, W, C) per channel (the renorm=False branch)."""
-    return BatchNorm(c, dtype=dtype)
+def _f32_inv(v: float) -> float:
+    """The f32 reciprocal of f32(v): XLA compiles a division by a constant
+    into a multiplication by it."""
+    return float(np.float32(1.0) / np.float32(v))
+
+
+class BatchRenorm(nn.Module):
+    """Batch renormalization over every axis but the last (flax
+    `BatchRenorm`, Ioffe 2017), f32 arithmetic, output in `dtype`.
+
+    Train mode: the batch's mean and two-pass biased variance
+    mean((x - mean)^2); y = ((x - mean) / std) * r + d with r =
+    clip(std / ra_std, 1 / r_max, r_max) and d = clip((mean - ra_mean) /
+    ra_std, -d_max, d_max), both without a gradient; r_max relaxes 1 -> 3
+    and d_max 0 -> 5 over `warmup_steps` steps after the first
+    `warmup_steps` (t = clip((steps - w) / w, 0, 1)), so a fresh layer runs
+    on plain batch statistics. The running statistics move as (1 - m) ra +
+    m batch with m = 0.01 (the opposite convention of flax's BatchNorm
+    momentum) and the int32 `steps` buffer counts the call, all in place on
+    the device. Eval: (x - ra_mean) * rsqrt(ra_var + eps), then * scale +
+    bias."""
+
+    momentum, eps = 0.01, 1e-5
+    r_max_final, d_max_final, warmup_steps = 3.0, 5.0, 500
+
+    def __init__(self, c: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.register_buffer("steps", torch.zeros((), dtype=torch.int32))
+
+    def _limits(self):
+        """(r_max, d_max) at the current `steps`, on the device."""
+        w = self.warmup_steps
+        t = torch.clamp((self.steps - w).to(torch.float32) * _f32_inv(w),
+                        0.0, 1.0)
+        return 1.0 + (self.r_max_final - 1.0) * t, self.d_max_final * t
+
+    @torch.no_grad()
+    def _update(self, mean, var):
+        m = self.momentum
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * var)
+        self.steps.add_(1)
+
+    def forward(self, x, train: bool = False):
+        xf = x.to(torch.float32)
+        if not train:
+            y = (xf - self.running_mean) * torch.rsqrt(self.running_var
+                                                       + self.eps)
+        else:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.square(xf - mean).mean(dims)
+            std = torch.sqrt(var + self.eps)
+            with torch.no_grad():
+                ra_std = torch.sqrt(self.running_var + self.eps)
+                r_max, d_max = self._limits()
+                r = torch.clamp(std / ra_std, 1.0 / r_max, r_max)
+                d = torch.clamp((mean - self.running_mean) / ra_std, -d_max,
+                                d_max)
+            y = ((xf - mean) / std) * r + d
+            self._update(mean.detach(), var.detach())
+        return (y * self.weight + self.bias).to(self.dtype)
+
+
+class BatchRenormNonIID(BatchRenorm):
+    """Batch renormalization for PK batches (flax `BatchRenormNonIID`):
+    train mode takes the statistics of each group of `group_size`
+    consecutive samples (one identity of a PK batch) over (K, H, W), renorm-
+    corrected against the running statistics as `BatchRenorm` does; the
+    samples past the last whole group (a ragged tail) are normalized by the
+    mean of the groups' means and the mean of their stds. The running
+    statistics fold the whole batch's mean and two-pass variance. Eval
+    blends each sample's own spatial statistics into the running ones,
+    (1 - eval_blend) ra + eval_blend inst, and normalizes by them."""
+
+    eval_blend = 0.2
+
+    def __init__(self, c: int, group_size: int = 4, dtype=torch.float32):
+        super().__init__(c, dtype)
+        self.group_size = group_size
+
+    def forward(self, x, train: bool = False):
+        xf = x.to(torch.float32)
+        b, h, w, c = x.shape
+        if not train:
+            inst_mean = xf.mean((1, 2), keepdim=True)
+            inst_var = torch.square(xf - inst_mean).mean((1, 2), keepdim=True)
+            a = self.eval_blend
+            mean = (1 - a) * self.running_mean + a * inst_mean
+            var = (1 - a) * self.running_var + a * inst_var
+            y = (xf - mean) * torch.rsqrt(var + self.eps)
+            return (y * self.weight + self.bias).to(self.dtype)
+        k = min(self.group_size, b)
+        g = b // k
+        xg = xf[:g * k].reshape(g, k, h, w, c)
+        mean_g = xg.mean((1, 2, 3), keepdim=True)
+        var_g = torch.square(xg - mean_g).mean((1, 2, 3), keepdim=True)
+        std_g = torch.sqrt(var_g + self.eps)
+        with torch.no_grad():
+            ra_std = torch.sqrt(self.running_var + self.eps)
+            r_max, d_max = self._limits()
+            r = torch.clamp(std_g / ra_std, 1.0 / r_max, r_max)
+            d = torch.clamp((mean_g - self.running_mean) / ra_std, -d_max,
+                            d_max)
+        y = (((xg - mean_g) / std_g) * r + d).reshape(g * k, h, w, c)
+        if b > g * k:
+            tail = (xf[g * k:] - mean_g.mean(0)) / std_g.mean(0)
+            y = torch.cat([y, tail], dim=0)
+        with torch.no_grad():
+            batch_mean = xf.mean((0, 1, 2))
+            batch_var = torch.square(xf - batch_mean).mean((0, 1, 2))
+        self._update(batch_mean, batch_var)
+        return (y * self.weight + self.bias).to(self.dtype)
+
+
+def make_norm2d(c: int, dtype=torch.float32, renorm: bool = False):
+    """BatchNorm, or BatchRenorm with `renorm`, per channel over (N, H, W,
+    C)."""
+    return BatchRenorm(c, dtype=dtype) if renorm else BatchNorm(c,
+                                                                 dtype=dtype)
 
 
 class InstanceNorm(nn.Module):
@@ -259,14 +393,15 @@ class InstanceNorm(nn.Module):
 
 
 class IBN(nn.Module):
-    """IBN-a: InstanceNorm on the first half of the channels, BatchNorm on
-    the rest (channels last)."""
+    """IBN-a: InstanceNorm on the first half of the channels, BatchNorm
+    (BatchRenorm with `renorm`) on the rest (channels last)."""
 
-    def __init__(self, c: int, ratio: float = 0.5, dtype=torch.float32):
+    def __init__(self, c: int, ratio: float = 0.5, dtype=torch.float32,
+                 renorm: bool = False):
         super().__init__()
         self.half = int(c * ratio)
         self.IN = InstanceNorm(self.half, dtype=dtype)
-        self.BN = make_norm2d(c - self.half, dtype=dtype)
+        self.BN = make_norm2d(c - self.half, dtype=dtype, renorm=renorm)
 
     def forward(self, x, train: bool = False):
         return torch.cat([self.IN(x[..., :self.half]),
@@ -335,6 +470,116 @@ class GeM(nn.Module):
                            torch.full((), self.eps, device=x.device))
         pooled = torch.mean(xf ** self.p, dim=(1, 2)) ** (1.0 / self.p)
         return pooled.to(self.dtype)
+
+
+def _fast_stats(xf: torch.Tensor, dims):
+    """flax `_compute_stats` with its fast variance: mean and
+    max(E[x^2] - mean^2, 0) over `dims`, kept as dims of size 1."""
+    mean = xf.mean(dims, keepdim=True)
+    var = torch.clamp(torch.mean(xf * xf, dims, keepdim=True) - mean * mean,
+                      min=0.0)
+    return mean, var
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last axis (eps 1e-6, fast variance),
+    f32 arithmetic, output in `dtype`."""
+
+    def __init__(self, c: int, eps: float = 1e-6, dtype=torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean, var = _fast_stats(xf, (-1,))
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(self.dtype)
+
+
+class GroupNorm1(nn.Module):
+    """flax `nn.GroupNorm(num_groups=1)`: each sample's statistics over all
+    of its axes (fast variance), a scale and bias per channel, f32."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean, var = _fast_stats(xf, tuple(range(1, x.ndim)))
+        return (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+
+
+class LBN1D(nn.Module):
+    """Split layer / batch norm over feature vectors (flax `LBN1D`):
+    LayerNorm on the first `ratio` of the features, BatchNorm (BatchRenorm
+    with `renorm`) over the batch on the rest."""
+
+    def __init__(self, c: int, ratio: float = 0.5, dtype=torch.float32,
+                 renorm: bool = False):
+        super().__init__()
+        self.half = int(c * ratio)
+        self.LN = LayerNorm(self.half, dtype=dtype)
+        self.BN = make_norm2d(c - self.half, dtype=dtype, renorm=renorm)
+
+    def forward(self, x, train: bool = False):
+        return torch.cat([self.LN(x[..., :self.half]),
+                          self.BN(x[..., self.half:], train)], dim=-1)
+
+
+class AttentionPooling(nn.Module):
+    """CLIP-style attention pooling (flax `AttentionPooling`): the tokens'
+    mean queries the tokens and itself over `num_heads` heads; (N, L, C)
+    -> (N, C). The logits are computed in f32 and scaled by the f32
+    reciprocal of sqrt(head width), as the compiled JAX program does."""
+
+    def __init__(self, c: int, num_heads: int = 8, dtype=torch.float32):
+        super().__init__()
+        self.heads, self.dtype = num_heads, dtype
+        for name in ("q", "k", "v", "proj"):
+            self.add_module(name, Linear(c, c, dtype, bias=True))
+
+    def forward(self, x):
+        n, l, c = x.shape
+        h, d = self.heads, c // self.heads
+        mean = x.to(torch.float32).mean(1, keepdim=True).to(x.dtype)
+        tokens = torch.cat([mean, x], dim=1)
+        q = self.q(mean).reshape(n, 1, h, d)
+        k = self.k(tokens).reshape(n, l + 1, h, d)
+        v = self.v(tokens).reshape(n, l + 1, h, d)
+        logits = torch.einsum("nqhd,nkhd->nhqk", q, k).to(torch.float32)
+        att = torch.softmax(logits * _f32_inv(math.sqrt(d)), -1).to(
+            self.dtype)
+        out = torch.einsum("nhqk,nkhd->nqhd", att, v).reshape(n, 1, c)
+        return self.proj(out)[:, 0]
+
+
+class MetaAconC1D(nn.Module):
+    """The ACON activation with a learned switch (flax `MetaAconC1D`):
+    beta = sigmoid(bn2(fc2(bn1(fc1(x))))) (momentum 0.99 norms), d = (p1 -
+    p2) x, out = d sigmoid(beta d) + p2 x."""
+
+    def __init__(self, width: int, r: int = 16, dtype=torch.float32):
+        super().__init__()
+        hidden = max(r, width // r)
+        self.fc1 = Linear(width, hidden, dtype, keep_f32=True, bias=True)
+        self.bn1 = BatchNorm(hidden, dtype=dtype, momentum=0.99)
+        self.fc2 = Linear(hidden, width, dtype, keep_f32=True, bias=True)
+        self.bn2 = BatchNorm(width, dtype=dtype, momentum=0.99)
+        self.p1 = nn.Parameter(torch.zeros(1, width))
+        self.p2 = nn.Parameter(torch.zeros(1, width))
+
+    def forward(self, x, train: bool = False):
+        h = self.bn2(self.fc2(self.bn1(self.fc1(x), train)), train)
+        beta = sigmoid_stepwise(h)
+        p1, p2 = self.p1.to(x.dtype), self.p2.to(x.dtype)
+        d = (p1 - p2) * x
+        return d * sigmoid_stepwise(beta * d) + p2 * x
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1, dtype=torch.float32,

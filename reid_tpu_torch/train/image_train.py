@@ -92,7 +92,8 @@ def train_cnn(cfg: Config, dataset: ReIDDataset,
                             num_classes=cfg.model.num_classes,
                             num_cams=cfg.model.num_cams,
                             dtype=getattr(torch, cfg.model.dtype),
-                            device=device, generator=gen)
+                            device=device, generator=gen,
+                            renorm=cfg.model.renorm)
         if ckpt:
             load_flax_variables(model, ckpt)
         state = create_train_state(model, cfg, steps_per_epoch, gen)
@@ -243,7 +244,7 @@ def expand_classifier(state: ReIDTrainState, cfg: Config, num_new: int,
         kernel.T))
     wide = build_model(new_cfg.model.backbone, num_classes=n_total,
                        num_cams=new_cfg.model.num_cams, dtype=model.dtype,
-                       device=dev)
+                       device=dev, renorm=new_cfg.model.renorm)
     wide.load_state_dict(sd)
     fresh = create_train_state(wide, new_cfg, 1, torch.Generator()
                                .manual_seed(cfg.train.seed + 2))

@@ -3,8 +3,9 @@
 The inverse of the layout map in `reid_tpu/utils/torch_convert.py:12-17`:
 flax conv kernels are HWIO and become OIHW, dense kernels (in, out) become
 (out, in); BatchNorm `scale`/`bias` with `batch_stats` `mean`/`var` become
-`weight`/`bias`/`running_mean`/`running_var`, InstanceNorm `scale`/`bias`
-become `weight`/`bias`; `gem/p` and `cam_bias` keep their names. A flax path
+`weight`/`bias`/`running_mean`/`running_var` (BatchRenorm adds its int32
+`steps`), the other norms' `scale`/`bias` become `weight`/`bias`; `gem/p`,
+`cam_bias`, `steps` and MetaAconC1D's `p1`/`p2` keep their names. A flax path
 "block11/bn1/IN/scale" names the parameter "block11.bn1.IN.weight". The
 same map carries the detectors (`models/yolo.py`, `models/detector.py`),
 whose module names equal the flax ones; a transposed conv's kernel
@@ -90,7 +91,8 @@ def torch_state_dict(variables: Mapping, transposed: Iterable[str] = ()
     for coll in ("params", "batch_stats"):
         for path, v in flatten(variables.get(coll, {})).items():
             *mods, leaf = path
-            arr = np.asarray(v, np.float32)
+            # BatchRenorm's step counter stays an integer
+            arr = np.asarray(v, np.int32 if leaf == "steps" else np.float32)
             if leaf == "kernel":
                 arr = (transposed_kernel_to_torch(arr)
                        if ".".join(mods) in transposed
@@ -102,15 +104,22 @@ def torch_state_dict(variables: Mapping, transposed: Iterable[str] = ()
 
 def load_flax_variables(model: torch.nn.Module, variables) -> None:
     """Copy flax variables (a tree, or an `.npz` path) into `model`; every
-    parameter and buffer must be covered."""
+    parameter and buffer must be covered. BatchRenorm's `steps` counters
+    are dropped where `model` has plain BatchNorm in their place: eval-mode
+    BatchRenorm is BatchNorm's function of the same scale, bias, mean and
+    var, so a `--renorm` checkpoint serves as the JAX package serves it
+    (whose restore skips the leaves its model lacks)."""
     from ..models.layers import ConvTranspose2d
 
     if isinstance(variables, str):
         variables = load_npz(variables)
     transposed = [n for n, m in model.named_modules()
                   if isinstance(m, ConvTranspose2d)]
-    model.load_state_dict(torch_state_dict(variables, transposed),
-                          strict=True)
+    sd = torch_state_dict(variables, transposed)
+    own = model.state_dict()
+    sd = {k: v for k, v in sd.items()
+          if k in own or not k.endswith(".steps")}
+    model.load_state_dict(sd, strict=True)
 
 
 def quant_state_from_flax(qstate, device="cuda") -> QuantState:
@@ -163,9 +172,10 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
                     leaf = "scale"
             put(params, path, leaf, np.array(arr))
         for name, t in m.named_buffers(recurse=False):
-            leaf = {"running_mean": "mean", "running_var": "var"}[name]
-            put(stats, path, leaf, t.detach().to("cpu", torch.float32)
-                .numpy())
+            leaf = {"running_mean": "mean", "running_var": "var",
+                    "steps": "steps"}[name]
+            dtype = torch.int32 if name == "steps" else torch.float32
+            put(stats, path, leaf, t.detach().to("cpu", dtype).numpy())
     return {"params": params, "batch_stats": stats}
 
 
@@ -205,7 +215,8 @@ def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
                             params["classifier"]["kernel"])[1],
                         num_cams=np.shape(params["cam_bias"])[0]
                         if "cam_bias" in params else cfg.model.num_cams,
-                        dtype=getattr(torch, cfg.model.dtype), device=device)
+                        dtype=getattr(torch, cfg.model.dtype), device=device,
+                        renorm=cfg.model.renorm)
     load_flax_variables(model, variables)
     names = [n for n, _ in model.named_parameters()]
     tx, center_tx = make_optimizers(cfg, steps_per_epoch)

@@ -1,5 +1,5 @@
 """Post-training int8 quantization of any module tree of the port (the
-SERes18 and ResNet embeds, the YOLOv5 trunk).
+SERes18-family and ResNet embeds, the YOLOv5 trunk).
 
 Counterpart of `reid_tpu/utils/quantize.py`. The JAX package calibrates and
 executes through flax method interceptors; here calibration hooks every
@@ -10,12 +10,15 @@ executes through flax method interceptors; here calibration hooks every
   * every calibrated layer runs in int8: its input is quantized (round half
     to even, clip to +-127), accumulated s8 x s8 -> s32 exactly, rescaled
     by sx*sw in f32 and cast to the layer's dtype;
-  * stride-1 SE blocks (`SEBasicBlock` only) with Cin and Cout multiples
-    of 128 run as one fused block (`ops/qblock.py`), and the other 3x3
-    stride-1 convs with both channel counts multiples of 128 run on
-    `ops/qconv.py` - the routing order of `quantization_interceptor`;
+  * stride-1 SE blocks (`SEBasicBlock` with the SE attention and plain
+    BatchNorm only: not CARes18's, EMARes18's or a `renorm` trunk's) with
+    Cin and Cout multiples of 128 run as one fused block
+    (`ops/qblock.py`), and the other 3x3 stride-1 convs with both channel
+    counts multiples of 128 run on `ops/qconv.py` - the routing order of
+    `quantization_interceptor`;
   * the remaining int8 layers (stem, 64-channel blocks, stride-2 convs, SE
-    fcs of non-fused blocks, classifier) multiply an im2col by
+    fcs of non-fused blocks, the triplet gates' 7x7 convs, EMA's convs,
+    classifier) multiply an im2col by
     `torch._int_mm` on the card (cuBLAS s8 x s8 -> s32, exact; K and N
     zero-padded to multiples of 8, M to more than 16), and in float64
     (exact) on the CPU.
@@ -129,6 +132,21 @@ def quantize_input(x: torch.Tensor, sx: float) -> torch.Tensor:
     return quantize_s8(x, inv_f32(sx))
 
 
+def scale_add(acc: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """acc * scale (+ bias) in f32. XLA contracts the multiply and the
+    add into one FMA (rounded once), which shows where the bias cancels
+    the product: in float64 on the CPU (the exact product, one rounding
+    of the sum to f32 but in the rarest ties), `addcmul` on the card."""
+    if bias is None:
+        return acc * scale
+    bias = bias.to(torch.float32)
+    if acc.device.type == "cpu":
+        return (acc.to(torch.float64) * scale.to(torch.float64)
+                + bias.to(torch.float64)).to(torch.float32)
+    return torch.addcmul(bias, acc, scale)
+
+
 def _pad_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
@@ -221,19 +239,18 @@ class QConv2d(nn.Module):
             # batch of one image or more
             acc = self.mm.acc(rows, pad_rows=ho * wo <= 16).reshape(
                 b, ho, wo, -1)
-        out = acc * self.scale
-        if self.bias is not None:
-            out = out + self.bias.to(torch.float32)
-        return out.to(self.dtype)
+        return scale_add(acc, self.scale, self.bias).to(self.dtype)
 
 
 class QLinear(nn.Module):
-    """An int8 dense layer: `_quantized_dense`."""
+    """An int8 dense layer: `_quantized_dense` (a bias added in f32, as
+    `scale_add`)."""
 
     def __init__(self, lin: Linear, kq: torch.Tensor, sw: torch.Tensor,
                  sx: float):
         super().__init__()
         self.dtype = lin.dtype
+        self.bias = lin.bias
         self.sx = sx
         self.register_buffer("scale", sw.to(torch.float32) * sx)
         self.mm = _Int8Matmul(kq)
@@ -242,7 +259,8 @@ class QLinear(nn.Module):
         xq = quantize_input(x, self.sx)
         lead = xq.shape[:-1]
         acc = self.mm.acc(xq.reshape(-1, xq.shape[-1]))
-        return (acc.reshape(*lead, -1) * self.scale).to(self.dtype)
+        return scale_add(acc.reshape(*lead, -1), self.scale,
+                         self.bias).to(self.dtype)
 
 
 class QSEBasicBlock(nn.Module):
@@ -317,8 +335,11 @@ def make_qblock_params(block: SEBasicBlock, qstate: QuantState,
 
 def _fused(block: SEBasicBlock, qstate: QuantState, prefix: str) -> bool:
     """`_qblock_route`'s test on an `SEBasicBlock` (no other block type is
-    fused): stride 1, Cin and Cout multiples of 128, and every conv of the
-    block quantized."""
+    fused): the SE attention without BatchRenorm (the kernel computes the
+    SE gate and folds BatchNorm), stride 1, Cin and Cout multiples of 128,
+    and every conv of the block quantized."""
+    if block.attention != "se" or block.renorm:
+        return False
     if block.stride != 1 or block.cin % 128 or block.planes % 128:
         return False
     rels = ("conv1", "conv2") + (("down_conv",) if block.downsample else ())

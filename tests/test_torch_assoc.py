@@ -23,6 +23,7 @@ from reid_tpu_torch.tracking import assignment as ta
 from reid_tpu_torch.tracking import costs as tc
 from reid_tpu_torch.tracking import kalman as tk
 from reid_tpu_torch.tracking import methods as tm
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 def T(x):

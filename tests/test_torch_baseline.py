@@ -231,7 +231,7 @@ def test_fresh_non_local_block_is_identity():
 
 def test_unported_backbones_raise_key_error():
     for name in ("osnet", "osnet_x0_5", "plr_osnet", "vit", "swin_v1",
-                 "video_resnet50", "cares18", "emares18"):
+                 "video_resnet50"):
         with pytest.raises(KeyError, match="agw"):
             build_model(name, num_classes=4, device="cpu")
 

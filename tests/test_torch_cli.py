@@ -20,6 +20,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 from _scenes import build_mot_scene  # noqa: E402
 
 from test_torch_quantize import force_jax_routes  # noqa: E402
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 
 def write_scene(root):

@@ -13,6 +13,7 @@ import torch.nn as tnn  # noqa: E402
 
 from reid_tpu.models.seres18 import SERes18IBN  # noqa: E402
 from reid_tpu.utils.torch_convert import convert_resnet18_ibn  # noqa: E402
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 
 class TorchIBN(tnn.Module):

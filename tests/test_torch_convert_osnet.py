@@ -11,6 +11,7 @@ import torch.nn as tnn  # noqa: E402
 
 from reid_tpu.models.osnet import OSNet  # noqa: E402
 from reid_tpu.utils.torch_convert import convert_osnet  # noqa: E402
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 
 class TConvLayer(tnn.Module):

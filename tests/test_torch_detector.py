@@ -27,6 +27,7 @@ from reid_tpu_torch.train.detector_train import make_detector_fn
 from reid_tpu_torch.utils.flax_bridge import load_flax_variables
 
 from test_torch_yolo import assert_bf16_close, perturb_stats  # noqa: E402
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 HW = (64, 96)
 

@@ -20,6 +20,7 @@ import torch
 import reid_tpu.ops.distance as jd
 from reid_tpu_torch.ops import distance as td
 from reid_tpu_torch.ops import launch_counts, reset_launch_counts
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 SHAPES = [(33, 21, 17), (1, 130, 129), (129, 7, 300)]
 

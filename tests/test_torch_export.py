@@ -26,6 +26,7 @@ from reid_tpu_torch.models import build_model
 from reid_tpu_torch.ops import qblock, qconv
 from reid_tpu_torch.utils.export import export_serving_fn
 from reid_tpu_torch.utils.quantize import quantized_model
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 def test_export_roundtrip_dynamic_batch(tmp_path):

@@ -21,6 +21,7 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import gauntlet as ref  # noqa: E402
 
 from reid_tpu_torch import gauntlet  # noqa: E402
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 
 def test_renderer_byte_equal(tmp_path):

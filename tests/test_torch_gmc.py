@@ -13,7 +13,6 @@
     boxes within 0.02 px, as test_torch_cli.py holds strongsort.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,9 +27,10 @@ from reid_tpu_torch.tracking import pipeline as tp
 from reid_tpu_torch.tracking.methods import method_config as tmc
 from reid_tpu_torch.tracking.tracker import init_tracker_state as tinit
 
-from test_torch_cli import read_mot
+from test_torch_cli import ckpt, read_mot  # noqa: F401
 from test_torch_pipeline import CROP, jax_embed, torch_embed
 from test_torch_quantize import force_jax_routes
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 def shifted_texture(t_total, h, w, shift, seed=0):
@@ -202,24 +202,19 @@ def write_panned_scene(root):
 
 
 @pytest.mark.parametrize("chunk", ["8", "1"])
-def test_track_main_botsort_matches_jax(tmp_path, monkeypatch, chunk):
+def test_track_main_botsort_matches_jax(tmp_path, monkeypatch, chunk,
+                                        ckpt):
     """botsort's default turns GMC on: chunked with the device estimator
-    on both sides, `--chunk 1` with `estimate_affine` per frame."""
+    on both sides, `--chunk 1` with `estimate_affine` per frame. The port
+    reads the flax init of JAX's `track_main` (test_torch_cli's `ckpt`,
+    one for the module)."""
     from reid_tpu.cli import track_main as jax_track_main
-    from reid_tpu.models import build_model as jbuild
     from reid_tpu_torch.cli import track_main
-    from reid_tpu_torch.utils.flax_bridge import save_npz
 
     fdir, det = write_panned_scene(tmp_path)
     flags = ["--detections", det, "--frames_dir", fdir, "--int8",
              "--chunk", chunk, "--crop_hw", "64", "32", "--num_classes",
              "16", "--max_dets", "8", "--tracking_method", "botsort"]
-    model = jbuild("seres18", num_classes=16, dtype=jnp.bfloat16)
-    variables = jax.jit(lambda k, x: model.init(k, x, train=True))(
-        jax.random.PRNGKey(0), jnp.zeros((2, 64, 32, 3), jnp.bfloat16))
-    ckpt = str(tmp_path / "init.npz")
-    save_npz(ckpt, jax.tree_util.tree_map(np.asarray, variables))
-
     force_jax_routes(monkeypatch)
     out_j = str(tmp_path / "jax.txt")
     n_j = jax_track_main(flags + ["--save_txt", out_j])

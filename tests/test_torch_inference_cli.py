@@ -10,8 +10,10 @@ with `--artifact`: each package serves its own artifact of the same
 weights (StableHLO for JAX, a torch.export `.pt2` for the port), in f32
 and in int8 (each side calibrated on the CLI's calibration batch).
 
-Tolerance: CMC identical at every rank and mAP within 1e-6 (measured
-equal). Both packages decode the tree's JPEGs to the same arrays (checked
+Without `--int8`, JAX's `inference_main` restores each checkpoint into
+one train state built once for the module (`share_jax_state`), as the
+port's reads the `.npz` into its model. Tolerance: CMC identical at every rank and mAP
+within 1e-6 (measured equal). Both packages decode the tree's JPEGs to the same arrays (checked
 in the fixture), so both embed the same pixels.
 """
 
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from test_torch_retrieval import write_market_tree
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +94,24 @@ def jax_int8_routes(monkeypatch):
     return calls
 
 
+def share_jax_state(monkeypatch, state):
+    """JAX's `inference_main` builds its state with `create_train_state`
+    (PRNGKey(0), SERes18 of 6 classes at 80x40) before it restores the
+    checkpoint into it: it gets `jax_state`, built by that same call once
+    for the module. Its `apply_fn` is then one object in every case, so
+    the jitted embeds of the JAX package compile once. Not under
+    `--int8`: the quantization interceptor acts while a function is
+    traced, and the inner jitted embed of an earlier case would be
+    reused untraced (the f32 program)."""
+    import reid_tpu.train.state as jstate
+
+    def create_train_state(key, model, cfg, steps_per_epoch,
+                           input_shape=None):
+        assert (model.num_classes, tuple(input_shape)) == (6, (2, 80, 40, 3))
+        return state
+    monkeypatch.setattr(jstate, "create_train_state", create_train_state)
+
+
 def export_both(root, state, npz, tmp, int8):
     """Each package's serving artifact of the same weights (`state`, whose
     variables `npz` holds); under `int8` each calibrates on the CLI's
@@ -128,6 +149,8 @@ def test_inference_main_matches_jax(tree_and_weights, jax_state, extra,
     flags = ["--root", root, "--height", "80", "--width", "40", "--bs", "8"]
     jax_only, port_only = ["--ckpt", ckpt], ["--ckpt", npz]
     int8 = "--int8" in extra or extra == ["--artifact", "int8"]
+    if not int8:
+        share_jax_state(monkeypatch, jax_state)
     if int8:
         calls = jax_int8_routes(monkeypatch)
     if extra and extra[0] == "--artifact":

@@ -90,3 +90,18 @@ def test_training_slice_module_is_checked(mod):
     path = path + ".py" if os.path.exists(path + ".py") else os.path.join(
         path, "__init__.py")
     assert not set(_imported_roots(path)) & set(BANNED)
+
+
+ATTENTION_SLICE = ["reid_tpu_torch.models.triplet_attention",
+                   "reid_tpu_torch.models.ema_attention",
+                   "reid_tpu_torch.models.layers",
+                   "reid_tpu_torch.models.seres18",
+                   "reid_tpu_torch.models.factory"]
+
+
+@pytest.mark.parametrize("mod", ATTENTION_SLICE)
+def test_attention_slice_module_is_checked(mod):
+    """The SERes18 family's modules (triplet and EMA attention,
+    BatchRenorm and the 1-D layers) are among those the checks above walk
+    (no banned import in their source, each imports with JAX blocked)."""
+    test_training_slice_module_is_checked(mod)

@@ -20,6 +20,7 @@ from reid_tpu_torch.ops import ivf as tivf
 from reid_tpu_torch.ops import kmeans as tkm
 from reid_tpu_torch.ops import rerank as trr
 from reid_tpu_torch.ops.distance import topk_neighbors
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 # `reid_tpu.ops` exports functions under these modules' names
 jivf = importlib.import_module("reid_tpu.ops.ivf")

@@ -32,6 +32,7 @@ from reid_tpu_torch.models import build_model
 from reid_tpu_torch.models.seres18 import SEBasicBlock
 from reid_tpu_torch.utils.flax_bridge import (load_flax_variables, load_npz,
                                               save_npz)
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

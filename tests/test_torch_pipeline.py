@@ -23,6 +23,7 @@ from reid_tpu.tracking.tracker import init_tracker_state  # noqa: E402
 from reid_tpu_torch.tracking import pipeline as tp  # noqa: E402
 from reid_tpu_torch.tracking.methods import method_config as tmc  # noqa
 from reid_tpu_torch.tracking.tracker import init_tracker_state as tinit  # noqa
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 CROP = (32, 16)
 PROJ = np.random.default_rng(3).normal(size=(3 * 4 * 4, 24)).astype(

@@ -18,6 +18,7 @@ import torch
 
 from reid_tpu.ops import qblock as jqb
 from reid_tpu_torch.ops import qblock as tqb
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 def within(got, want, tight=1e-4, loose=5e-2, share=0.999):

@@ -25,6 +25,7 @@ from reid_tpu_torch.ops import launch_counts, reset_launch_counts
 from reid_tpu_torch.ops import qconv as tq
 
 from test_torch_qconv import inputs, pack_hwio
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 JAX_KERNELS = {tq.NCAT: jq.conv3x3_s8_ncat,
                tq.BITSHIFT: jq.conv3x3_s8_bitshift,

@@ -29,6 +29,7 @@ from reid_tpu_torch.models import build_model
 from reid_tpu_torch.utils import quantize as tqz
 from reid_tpu_torch.utils.flax_bridge import (load_flax_variables,
                                               quant_state_from_flax)
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 def force_jax_routes(monkeypatch):

@@ -16,6 +16,7 @@ import reid_tpu.ops.policy as jp
 import reid_tpu.ops.rerank as jr
 from reid_tpu_torch.ops import policy as tp
 from reid_tpu_torch.ops import rerank as tr
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 def clustered(rng, n_centers, per, dim, spread, scale=3.0):

@@ -59,6 +59,7 @@ from reid_tpu_torch.ops.dbscan import dbscan_precomputed
 from reid_tpu_torch.train.image_train import extract_embeddings
 from reid_tpu_torch.train.steps import embed_with_flip
 from reid_tpu_torch.utils.flax_bridge import load_flax_variables
+from test_torch_train_data import two_torch_threads  # noqa: F401
 
 COLORS = [(220, 40, 40), (40, 220, 40), (40, 40, 220), (200, 200, 40),
           (40, 200, 200), (200, 40, 200)]

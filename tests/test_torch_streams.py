@@ -33,6 +33,7 @@ from reid_tpu_torch.tracking.streams import (  # noqa: E402
     init_stream_states, make_stream_tracker)
 from reid_tpu_torch.tracking.tracker import init_tracker_state  # noqa
 from test_torch_gmc import panned_scene  # noqa: E402
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 CROP = (32, 16)
 S, T, D, CHUNK = 3, 16, 8, 8

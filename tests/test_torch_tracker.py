@@ -21,6 +21,7 @@ from reid_tpu.tracking.methods import method_config as jmc  # noqa: E402
 from reid_tpu.tracking.tracker import Tracker as JTracker  # noqa: E402
 from reid_tpu_torch.tracking.methods import method_config as tmc  # noqa
 from reid_tpu_torch.tracking.tracker import Tracker as TTracker  # noqa
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 FEAT = 32
 

@@ -34,6 +34,7 @@ from reid_tpu_torch.utils.flax_bridge import (load_flax_variables,
                                               quant_state_from_flax)
 
 from test_yolo import TorchYOLOv5, _randomize_torch  # noqa: E402
+from test_torch_train_data import two_torch_threads  # noqa: E402,F401
 
 HW = (96, 160)
 

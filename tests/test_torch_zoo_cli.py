@@ -1,23 +1,39 @@
-"""The torchvision-style ResNets through the port's three CLIs against the
+"""The backbones beside SERes18 through the port's three CLIs against the
 JAX package's, one run each at the cheapest settings that reach the
 `--backbone` branch:
 
-  * `track_main --backbone baseline --int8` on test_torch_cli's 16-frame
-    scene at 64x32 crops (--chunk 8), both sides from one flax init and
-    one QuantState (JAX's, handed to the port), the JAX kernel routes
-    forced on through their references: the same (frame, id) rows with
-    boxes within 0.02 px; the int8 conv route taken at each of baseline's
-    ten K1 sites (per call, counted where it is patched) and the fused SE
-    block never, on both sides; the tracker's feature width from the
-    probe forward, 512 + classes.
+  * `track_main --backbone baseline --int8` and `--backbone cares18
+    --int8` on test_torch_cli's 16-frame scene at 64x32 crops (--chunk
+    8), both sides from one flax init and one QuantState (JAX's, handed
+    to the port), the JAX kernel routes forced on through their
+    references: the same (frame, id) rows with boxes within 0.02 px; the
+    int8 conv route taken at each of the backbone's ten K1 sites (per
+    call, counted where it is patched) and the fused SE block never, on
+    both sides; the tracker's feature width from the probe forward, 512
+    + classes.
   * `inference_main --backbone agw` on test_torch_retrieval's Market-style
     tree at 80x40 (f32, re-ranking on; D = 2048 + 6), from one random
     train state whose non-local `w_bn` scales are made non-zero (an orbax
     checkpoint for JAX, its `.npz` for the port): CMC identical at every
     rank, mAP within 1e-6.
+  * The port's `train_main --backbone emares18` and `train_main --renorm`
+    (SERes18 with BatchRenorm), two epochs of one step (--bs 8
+    --instance 2) at 64x32 on that tree: finite losses and parameters, a
+    checkpoint whose tree is the port's model's (which
+    test_torch_cares.py holds to the flax init's), with `--renorm` its
+    int32 `steps` counters at 2. The renorm checkpoint serves through
+    `inference_main` and `track_main`, which read it into plain
+    BatchNorm (the counters dropped, as the JAX package's restore drops
+    what its model lacks); the served model's eval outputs equal the
+    renorm model's in f32 within 1e-5 of their largest magnitude (the
+    same function, rounded in another order; read: 1.2e-6 on the logits,
+    whose random-init classifier sums to values near 0). `--renorm` with
+    a ResNet backbone stops at the parser.
 
 The `train_main --backbone resnet50` run is in
-tests/test_torch_baseline_train.py."""
+tests/test_torch_baseline_train.py; the train steps of cares18, emares18
+and a renorm SERes18 against JAX's are in
+tests/test_torch_cares_train.py."""
 
 import dataclasses
 
@@ -28,6 +44,7 @@ import pytest
 import torch
 
 from test_torch_baseline import BASELINE_K1
+from test_torch_cares import K1_SITES as CARES_K1
 from test_torch_cli import read_mot, write_scene
 from test_torch_quantize import force_jax_routes
 from test_torch_retrieval import write_market_tree
@@ -35,6 +52,14 @@ from test_torch_train_data import two_torch_threads  # noqa: F401
 
 
 def test_track_main_baseline_int8_matches_jax(tmp_path, monkeypatch):
+    track_int8_matches_jax(tmp_path, monkeypatch, "baseline", BASELINE_K1)
+
+
+def test_track_main_cares18_int8_matches_jax(tmp_path, monkeypatch):
+    track_int8_matches_jax(tmp_path, monkeypatch, "cares18", CARES_K1)
+
+
+def track_int8_matches_jax(tmp_path, monkeypatch, backbone, k1_sites):
     import reid_tpu.utils.quantize as jqz
     import reid_tpu_torch.utils.quantize as tqz
     from reid_tpu.cli import track_main as jax_track_main
@@ -43,7 +68,7 @@ def test_track_main_baseline_int8_matches_jax(tmp_path, monkeypatch):
     from reid_tpu_torch.utils.flax_bridge import (quant_state_from_flax,
                                                   save_npz)
 
-    model = jbuild("baseline", num_classes=16, dtype=jnp.bfloat16)
+    model = jbuild(backbone, num_classes=16, dtype=jnp.bfloat16)
     variables = jax.jit(lambda k, x: model.init(k, x, train=True))(
         jax.random.PRNGKey(0), jnp.zeros((2, 64, 32, 3), jnp.bfloat16))
     ckpt = str(tmp_path / "init.npz")
@@ -52,7 +77,7 @@ def test_track_main_baseline_int8_matches_jax(tmp_path, monkeypatch):
     fdir, det = write_scene(tmp_path)
     flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
              "--crop_hw", "64", "32", "--num_classes", "16", "--max_dets",
-             "8", "--int8", "--backbone", "baseline"]
+             "8", "--int8", "--backbone", backbone]
     calls = force_jax_routes(monkeypatch)
     qstates = []
     jquantize = jqz.quantize
@@ -90,14 +115,14 @@ def test_track_main_baseline_int8_matches_jax(tmp_path, monkeypatch):
                          device="cpu")
     assert widths == [512 + 16]
     # the ten K1 sites at 64x32 crops (per image: H, W, Cin; and Cout):
-    # three at 8x4 c128, three at 4x2 c256, layer4_0.conv1 256 -> 512 and
-    # three at 4x2 c512, each taking every embed call (the probe forward
-    # and one call a chunk)
+    # three at 8x4 c128, three at 4x2 c256, one 256 -> 512 (baseline's
+    # layer4_0.conv1, cares18's block41.conv1) and three at 4x2 c512, each
+    # taking every embed call (the probe forward and one call a chunk)
     n = sites[((4, 2, 256), 512)]
     assert n >= 3
     assert sites == {((8, 4, 128), 128): 3 * n, ((4, 2, 256), 256): 3 * n,
                      ((4, 2, 256), 512): n, ((4, 2, 512), 512): 3 * n}
-    assert 3 + 3 + 1 + 3 == len(BASELINE_K1)
+    assert 3 + 3 + 1 + 3 == len(k1_sites)
     assert n_t == n_j > 20
     rj, rt = read_mot(out_j), read_mot(out_t)
     np.testing.assert_array_equal(rt[:, :2], rj[:, :2])
@@ -144,3 +169,117 @@ def test_inference_main_agw_matches_jax(market_tree, tmp_path):
     assert keep["qf"].shape[1] == 2048 + 6
     np.testing.assert_array_equal(cmc_t, np.asarray(cmc_j))
     assert abs(map_t - map_j) <= 1e-6, (map_t, map_j)
+
+
+def flax_tree(backbone, renorm=False):
+    """Shapes and dtypes of the backbone's flax variables (6 classes), as
+    the port builds them: its tree is the flax init's
+    (test_torch_cares.py)."""
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils.flax_bridge import flax_variables
+    v = flax_variables(build_model(backbone, num_classes=6, device="cpu",
+                                   renorm=renorm))
+    return jax.tree_util.tree_map(lambda a: (np.shape(a), a.dtype.name), v)
+
+
+def train_two_steps(root, ckpt_dir, *flags):
+    from reid_tpu_torch.cli import train_main
+    with torch.backends.mkldnn.flags(enabled=False):
+        state = train_main(["--root", root, "--epochs", "2", "--bs", "8",
+                            "--instance", "2", "--height", "64", "--width",
+                            "32", *flags], device="cpu", ckpt_dir=ckpt_dir)
+    assert state.step == 2
+    for p in state.model.parameters():
+        assert torch.isfinite(p).all()
+    return state
+
+
+@pytest.fixture(scope="module")
+def market64(tmp_path_factory):
+    return write_market_tree(str(tmp_path_factory.mktemp("m64") / "m"))
+
+
+def test_train_main_emares18(market64, tmp_path):
+    from reid_tpu_torch.models.ema_attention import EMAttention
+    from reid_tpu_torch.utils.flax_bridge import load_npz
+    state = train_two_steps(market64, str(tmp_path), "--backbone",
+                            "emares18")
+    assert sum(isinstance(m, EMAttention) for m in state.model.modules()) \
+        == 8
+    saved = load_npz(str(tmp_path / "cnn_net_checkpoint_market1501.npz"))
+    assert jax.tree_util.tree_map(
+        lambda a: (np.shape(a), a.dtype.name), saved) == flax_tree(
+            "emares18")
+
+
+def test_train_main_renorm_serves(market64, tmp_path):
+    from reid_tpu_torch.cli import inference, track_main
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.models.layers import BatchNorm, BatchRenorm
+    from reid_tpu_torch.utils.flax_bridge import (load_flax_variables,
+                                                  load_npz)
+    state = train_two_steps(market64, str(tmp_path), "--renorm")
+    renorms = [m for m in state.model.modules()
+               if isinstance(m, BatchRenorm)]
+    assert len(renorms) == 20
+    assert all(m.steps.dtype == torch.int32 and int(m.steps) == 2
+               for m in renorms)
+    npz = str(tmp_path / "cnn_net_checkpoint_market1501.npz")
+    saved = load_npz(npz)
+    assert jax.tree_util.tree_map(
+        lambda a: (np.shape(a), a.dtype.name), saved) == flax_tree(
+            "seres18", renorm=True)
+    assert int(saved["batch_stats"]["bn0"]["steps"]) == 2
+
+    # serving reads it into plain BatchNorm: the same eval function (held
+    # in f32, where a rounding moved by the order stays an f32 ulp)
+    served = build_model("seres18", num_classes=6, device="cpu")
+    load_flax_variables(served, npz)
+    assert not any(isinstance(m, BatchRenorm) for m in served.modules())
+    assert isinstance(served.bn0, BatchNorm)
+    trained = build_model("seres18", num_classes=6, device="cpu",
+                          renorm=True)
+    load_flax_variables(trained, npz)
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(3, 64, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = trained(x)
+        got = served(x)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+    with pytest.raises(RuntimeError, match="Missing key"):
+        bad = {k: v for k, v in saved.items()}
+        bad["batch_stats"] = dict(saved["batch_stats"])
+        del bad["batch_stats"]["bn0"]
+        load_flax_variables(build_model("seres18", num_classes=6,
+                                        device="cpu"), bad)
+
+    keep = {}
+    cmc, mean_ap = inference(["--root", market64, "--ckpt", npz, "--height",
+                              "64", "--width", "32", "--bs", "8"],
+                             device="cpu", keep=keep)
+    assert cmc.shape == (50,) and 0.0 < mean_ap <= 1.0
+    assert keep["qf"].shape[1] == 512 + 6
+    fdir, det = write_scene(tmp_path)
+    out = str(tmp_path / "renorm.txt")
+    n = track_main(["--detections", det, "--frames_dir", fdir, "--chunk",
+                    "8", "--crop_hw", "64", "32", "--num_classes", "6",
+                    "--max_dets", "8", "--ckpt", npz, "--save_txt", out],
+                   device="cpu")
+    assert n > 20 and read_mot(out).shape[0] == n
+
+
+def test_train_main_renorm_refuses_resnets(tmp_path):
+    from reid_tpu_torch.cli import train_main
+    for backbone in ("baseline", "resnet50", "agw", "osnet"):
+        with pytest.raises(SystemExit):
+            train_main(["--root", str(tmp_path), "--renorm", "--backbone",
+                        backbone], device="cpu")
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.models.factory import MODELS, supports_renorm
+    with pytest.raises(ValueError, match="renorm"):
+        build_model("resnet50", num_classes=4, device="cpu", renorm=True)
+    assert {n for n in MODELS if supports_renorm(n)} == {
+        "seres18", "cares18", "emares18"}
+    assert not supports_renorm("osnet")
