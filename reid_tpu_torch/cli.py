@@ -36,11 +36,15 @@ runs the same program on the CPU with the kernels' plain versions.
     `--target_dataset` and continual training, `--export` a `.pt2`
     serving artifact. One device. `--renorm` puts BatchRenorm into the
     SERes18 family's trunk (the JAX package takes the flag and drops it);
-    a ResNet backbone refuses it. The serving entries read a `--renorm`
-    checkpoint into plain BatchNorm, as the JAX package does.
+    the other backbones refuse it. The serving entries read a `--renorm`
+    checkpoint into plain BatchNorm, as the JAX package does. OSNet
+    trains through the same loop; `--backbone plr_osnet` is refused (its
+    dual-branch loop is the library `train/plr_train.py`, which the JAX
+    package's `train_main` never reaches either).
 
 `--backbone` takes the names `models.build_model` has (seres18, cares18,
-emares18, baseline, resnet50, agw); the others raise KeyError.
+emares18, baseline, resnet50, agw, osnet, osnet_x1_0, osnet_x0_5,
+osnet_x0_25, plr_osnet); the others raise KeyError.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
@@ -163,8 +167,9 @@ def calibration_crops(source: str, crop_hw, device) -> torch.Tensor:
 def build_embed(backbone: str, num_classes: int, crop_hw, device,
                 ckpt: str = "", int8: bool = False, source: str = ""):
     """The serve-path embed: fn(crops (N,ch,cw,3)) -> L2-normalized
-    [feat || logits] (N, F), and the module it runs (the quantized copy
-    under int8). The model computes in bf16, as the CLI's flax model does;
+    [feat || logits] (N, F), or the feature alone for a dual-head model
+    (plr_osnet: 2,560), and the module it runs (the quantized copy under
+    int8). The model computes in bf16, as the CLI's flax model does;
     without a checkpoint its weights are a random init from a generator
     seeded 0."""
     from .models import build_model
@@ -183,8 +188,13 @@ def build_embed(backbone: str, num_classes: int, crop_hw, device,
 
     def embed_fn(crops):
         feat, logits = net(crops.to(torch.bfloat16))
-        f = torch.cat([feat.to(torch.float32), logits.to(torch.float32)],
-                      dim=1)
+        if isinstance(logits, tuple):
+            # the reference's eval path emits the part feature only (ref
+            # plr_osnet.py:107-110)
+            f = feat.to(torch.float32)
+        else:
+            f = torch.cat([feat.to(torch.float32),
+                           logits.to(torch.float32)], dim=1)
         return f / torch.clamp(torch.linalg.norm(f, dim=1, keepdim=True),
                                min=1e-12)
 
@@ -496,8 +506,9 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
                 from .utils.flax_bridge import load_flax_variables, load_npz
                 variables = load_npz(args.ckpt)
                 # a continual run's checkpoint has a wider classifier
-                num_classes = variables["params"]["classifier"][
-                    "kernel"].shape[1]
+                params = variables["params"]
+                head = params.get("classifier", params.get("classifier1"))
+                num_classes = head["kernel"].shape[1]
             model = build_model(cfg.model.backbone, num_classes=num_classes,
                                 num_cams=cfg.model.num_cams,
                                 dtype=torch.float32, device=device)
@@ -590,6 +601,13 @@ def train_main(argv=None, device: Optional[str] = "cuda",
     `ckpt_dir`."""
     p = _train_parser()
     args = p.parse_args(argv)
+    if args.backbone == "plr_osnet":
+        # the JAX package's train_main sends it to train_cnn, whose first
+        # step fails on the pair of features
+        p.error("--backbone plr_osnet: its dual-branch loop is the library "
+                "reid_tpu_torch.train.plr_train (create_plr_train_state, "
+                "make_plr_train_step); train_main does not run it, as the "
+                "JAX package's does not")
     if args.renorm:
         from .models.factory import supports_renorm
         if not supports_renorm(args.backbone):

@@ -1,12 +1,15 @@
 """Models of the port: the SERes18-IBN family (SE, triplet and EMA block
-attention) and the torchvision-style ResNets."""
+attention), the torchvision-style ResNets, OSNet and PLR-OSNet."""
 
+from .attention_modules import AttentionModule, MCALayer, PAMModule, SEModule
 from .baseline import BasicBlock, Bottleneck, NonLocalBlock, ResNetReID
 from .ema_attention import EMAttention
 from .factory import build_model
+from .osnet import OSBlock, OSNet, PLROSNet
 from .seres18 import SEBasicBlock, SERes18IBN
 from .triplet_attention import TripletAttention
 
-__all__ = ["build_model", "BasicBlock", "Bottleneck", "EMAttention",
-           "NonLocalBlock", "ResNetReID", "SEBasicBlock", "SERes18IBN",
-           "TripletAttention"]
+__all__ = ["build_model", "AttentionModule", "BasicBlock", "Bottleneck",
+           "EMAttention", "MCALayer", "NonLocalBlock", "OSBlock", "OSNet",
+           "PAMModule", "PLROSNet", "ResNetReID", "SEBasicBlock",
+           "SEModule", "SERes18IBN", "TripletAttention"]

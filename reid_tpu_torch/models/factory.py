@@ -1,7 +1,8 @@
 """Model factory - name -> module. Counterpart of
 `reid_tpu/models/factory.py:build_model` for the backbones the port has:
-the SERes18 family (seres18, cares18, emares18) and the torchvision-style
-ResNets (baseline, resnet50, agw)."""
+the SERes18 family (seres18, cares18, emares18), the torchvision-style
+ResNets (baseline, resnet50, agw), OSNet (osnet = osnet_x1_0, osnet_x0_5,
+osnet_x0_25) and PLR-OSNet (plr_osnet)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,14 @@ from typing import Optional
 import torch
 
 from .baseline import ResNetReID
+from .osnet import CHANNELS, OSNet, PLROSNet
 from .seres18 import SERes18IBN
+
+
+def osnet_channels(mult: float):
+    """OSNet's stage widths scaled by `mult`, at least 16 each."""
+    return tuple(max(16, int(c * mult)) for c in CHANNELS)
+
 
 BOTTLENECK50 = dict(block="bottleneck", blocks=(3, 4, 6, 3))
 # name -> (module, its arguments besides num_classes, num_cams and dtype)
@@ -27,12 +35,20 @@ MODELS = {
     # AGW: ResNet50 + non-local + GeM pooling, no bottleneck fc
     "agw": (ResNetReID, dict(BOTTLENECK50, non_local=True, pooling="gem",
                              bottleneck_dim=0)),
+    # OSNet at three widths; "osnet" is x1.0
+    "osnet": (OSNet, {}),
+    "osnet_x1_0": (OSNet, {}),
+    "osnet_x0_5": (OSNet, dict(channels=osnet_channels(0.5))),
+    "osnet_x0_25": (OSNet, dict(channels=osnet_channels(0.25))),
+    # PLR-OSNet: PAM + SE attention, global part and local branches
+    "plr_osnet": (PLROSNet, {}),
 }
 
 
 def supports_renorm(name: str) -> bool:
     """Whether backbone `name` has the BatchRenorm option: the SERes18
-    family does, the ResNets (here and in the JAX package) do not."""
+    family does, the ResNets and OSNets (here and in the JAX package) do
+    not."""
     return name in MODELS and MODELS[name][0] is SERes18IBN
 
 
@@ -42,8 +58,9 @@ def build_model(name: str, num_classes: int, num_cams: int = 6,
                 renorm: bool = False):
     """Build an eval-mode model by backbone name on `device`, initialized
     from `generator` (a fresh one seeded 0 when None). `renorm` puts
-    BatchRenorm into the SERes18 family's trunk; the ResNets have no such
-    option (nor in the JAX package) and refuse it."""
+    BatchRenorm into the SERes18 family's trunk; the other backbones have
+    no such option (nor in the JAX package) and refuse it. Names the port
+    lacks (the transformers, the video models) raise KeyError."""
     if name not in MODELS:
         raise KeyError(f"backbone '{name}' is not ported yet; have "
                        f"{sorted(MODELS)}")

@@ -55,7 +55,9 @@ def _tf32_convs():
 
 class Conv2d(nn.Conv2d):
     """Conv on NHWC activations (flax `nn.Conv` semantics), bias-free
-    unless `bias`; a bias is added in `dtype`, as flax adds it.
+    unless `bias`; a bias is added in `dtype`, as flax adds it. `groups`
+    is flax's `feature_group_count`: a depthwise conv (groups = Cin =
+    Cout) has flax's kernel (kh, kw, 1, C), here (C, 1, kh, kw).
 
     `keep_f32`: the result is read in f32 (a BatchNorm follows, or the
     caller casts it to f32), and the compiled JAX program then skips the
@@ -66,9 +68,9 @@ class Conv2d(nn.Conv2d):
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype=torch.float32, bias: bool = False,
-                 keep_f32: bool = False):
+                 keep_f32: bool = False, groups: int = 1):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         bias=bias)
+                         bias=bias, groups=groups)
         self.dtype = dtype
         self.keep_f32 = keep_f32
 
@@ -78,12 +80,13 @@ class Conv2d(nn.Conv2d):
         if init == "kaiming":
             kaiming_(self.weight.data, k * self.out_channels, generator)
         else:
-            lecun_(self.weight.data, k * self.in_channels, generator)
+            lecun_(self.weight.data, k * self.weight.shape[1], generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias.data)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
+        g = self.groups
         w = self.weight.to(self.dtype)
         if self.keep_f32 and self.dtype != torch.float32:
             # TF32 holds a bf16 value exactly and multiplies two exactly,
@@ -91,9 +94,11 @@ class Conv2d(nn.Conv2d):
             # TF32 tensor cores without changing what it computes
             with _tf32_convs():
                 y = F.conv2d(x.to(torch.float32), w.to(torch.float32),
-                             stride=self.stride, padding=self.padding)
+                             stride=self.stride, padding=self.padding,
+                             groups=g)
         else:
-            y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding,
+                         groups=g)
         y = y.permute(0, 2, 3, 1)
         if self.bias is None:
             return y

@@ -1,0 +1,98 @@
+"""MADGRAD (Defazio & Jelassi 2021), the optimizer of PLR-OSNet's loop
+without PK sampling (ref image_reid_train.py:201: lr 0.01, weight decay
+5e-4, momentum 0.9).
+
+Counterpart of `reid_tpu/train/optim.py:madgrad` inside the global-norm
+clip (`optax.chain(clip_by_global_norm, madgrad)`), written as
+`torch._foreach` updates on the parameters in place, as
+`state.ModelOptimizer` is:
+
+    g     <- clip(g) + weight_decay * p     (L2 into the gradient)
+    lamb   = lr(k) * sqrt(k + 1)            (k: updates so far)
+    s     <- s + lamb * g
+    v     <- v + lamb * g * g
+    z      = x0 - s / (cbrt(v) + eps)       (dual averaging from x0)
+    p     <- p + ((1 - c) p + c z - p),     c = 1 - momentum
+
+in f32, lamb on the host as the JAX package's traced f32 schedule gives
+it. The cube root is the one thing torch lacks: XLA computes it as libm's
+powf(v, f32(1/3)); here v ** f32(1/3) is taken in float64 and rounded to
+f32, which equals it but for ties of the f32 rounding (read: 0.06% of
+values, 1 ulp; see tests/test_torch_plr_train.py).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from .schedules import Schedule
+
+_F = np.float32
+_THIRD = float(_F(1.0) / _F(3.0))
+_EPS = 1e-6                            # madgrad's default eps
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
+                        ) -> List[torch.Tensor]:
+    """optax's `clip_by_global_norm`: g, or (g / |g|) * max where the
+    global norm |g| >= max (no epsilon), without a host read."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    grads = torch._foreach_div(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return grads
+
+
+def cbrt(v: torch.Tensor) -> torch.Tensor:
+    """The f32 cube root of v >= 0 (`jnp.cbrt` on XLA:CPU within 1 ulp)."""
+    return v.to(torch.float64).pow(_THIRD).to(torch.float32)
+
+
+class Madgrad:
+    """optax.chain(clip_by_global_norm(grad_clip), madgrad(schedule,
+    momentum, weight_decay)) over a list of parameters; the state is
+    {"count", "grad_sum", "grad_sum_sq", "x0"} (optax's `MadgradState`)."""
+
+    def __init__(self, schedule: Schedule, weight_decay: float,
+                 grad_clip: float, momentum: float = 0.9):
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.grad_clip = grad_clip
+        ck = 1.0 - momentum
+        self.keep, self.step_to = float(_F(1.0 - ck)), float(_F(ck))
+
+    def init(self, params: List[torch.Tensor]) -> dict:
+        return {"count": 0,
+                "grad_sum": [torch.zeros_like(p) for p in params],
+                "grad_sum_sq": [torch.zeros_like(p) for p in params],
+                "x0": [p.detach().clone() for p in params]}
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: dict) -> None:
+        """One update of `params` and `state`, in place."""
+        g = clip_by_global_norm(list(grads), self.grad_clip)
+        if self.weight_decay:
+            torch._foreach_add_(g, params, alpha=self.weight_decay)
+        k = state["count"]
+        lamb = float(_F(self.schedule(k)) * np.sqrt(_F(k) + _F(1)))
+        s, v = state["grad_sum"], state["grad_sum_sq"]
+        lg = torch._foreach_mul(g, lamb)
+        torch._foreach_add_(s, lg)
+        torch._foreach_addcmul_(v, lg, g)
+        # the cube roots of every moment in one pass over a flat copy
+        flat = cbrt(torch.cat([t.reshape(-1) for t in v]))
+        rms = [r.view_as(t) for r, t in
+               zip(torch.split(flat, [t.numel() for t in v]), v)]
+        torch._foreach_add_(rms, _EPS)
+        z = torch._foreach_div(s, rms)
+        z = torch._foreach_sub(state["x0"], z)
+        new = torch._foreach_mul(params, self.keep)
+        torch._foreach_add_(new, torch._foreach_mul(z, self.step_to))
+        torch._foreach_sub_(new, params)
+        torch._foreach_add_(params, new)
+        state["count"] = k + 1

@@ -1,15 +1,18 @@
 """Train state: the model, the loss state, both optimizers and the step.
 
-Counterpart of `reid_tpu/train/state.py` for the CNN branches of
-`make_optimizers` (ref image_reid_train.py:49-56, :87, :92-95). The model
-optimizer is optax's chain written out as explicit updates on tensors:
+Counterpart of `reid_tpu/train/state.py` for the CNN and PLR-OSNet
+branches of `make_optimizers` (ref image_reid_train.py:49-56, :87,
+:92-95, :196-201). The model optimizer is optax's chain written out as
+explicit updates on tensors:
 `clip_by_global_norm(grad_clip)` (g * max / |g| only where |g| > max, the
 norm without an epsilon; `clip_grad_norm_` adds 1e-6 and is not used) ->
 `add_decayed_weights(weight_decay)` (L2 into the gradient, on every
 parameter, norm scales included) -> Adam (eps 1e-8 outside the root,
 bias correction at the incremented count) under PK sampling, else SGD
 with Nesterov momentum 0.9; the lr is the schedule at the count before
-the increment. The centers take `scale(1 / lamda)` -> `sgd(center_lr)`.
+the increment. PLR-OSNet without PK sampling takes MADGRAD inside the
+same clip (`train/optim.py`). The centers take `scale(1 / lamda)` ->
+`sgd(center_lr)`.
 Updates run in place on the parameters and moments with `torch._foreach`
 ops (a handful of multi-tensor launches a step) and read nothing back to
 the host.
@@ -25,6 +28,7 @@ import torch
 
 from ..config import Config
 from ..losses import HybridLossState, XBMState, init_hybrid_state, init_xbm
+from .optim import Madgrad, clip_by_global_norm
 from .schedules import Schedule, warmup_cosine_schedule
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
@@ -48,22 +52,11 @@ class ModelOptimizer:
             return {"count": 0, "mu": zeros(), "nu": zeros()}
         return {"count": 0, "trace": zeros()}
 
-    def clip(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """g, or (g / |g|) * max where the global norm |g| >= max."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
-            grads)))
-        keep = norm < self.grad_clip
-        one = torch.ones((), device=norm.device)
-        grads = torch._foreach_div(grads, torch.where(keep, one, norm))
-        torch._foreach_mul_(grads, torch.where(keep, one, one
-                                               * self.grad_clip))
-        return grads
-
     @torch.no_grad()
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
               state: dict) -> None:
         """One update of `params` and `state`, in place."""
-        g = self.clip(list(grads))
+        g = clip_by_global_norm(list(grads), self.grad_clip)
         torch._foreach_add_(g, params, alpha=self.weight_decay)
         lr = self.schedule(state["count"])
         count = state["count"] + 1
@@ -105,24 +98,35 @@ class CenterSGD:
 
 
 def make_optimizers(cfg: Config, steps_per_epoch: int):
-    """(model optimizer, center optimizer) of the CNN loops (ref
-    image_reid_train.py:51-56): Adam(lr, wd) under PK sampling, else
-    SGD-Nesterov, both under the WarmUpCosine schedule and the global-norm
-    clip; centers SGD(center_lr) after the 1/lamda rescale (ref :310-312).
-    The transformer branch and PLR-OSNet's MADGRAD come with their
+    """(model optimizer, center optimizer), per reference branch:
+
+    * the CNN loops (ref image_reid_train.py:51-56): Adam(lr, wd) under PK
+      sampling, else SGD-Nesterov, both under the WarmUpCosine schedule;
+    * PLR-OSNet's loop (ref :196-201): Adam as above under PK sampling,
+      else MADGRAD under its own WarmUpCosine from 0.01, weight decay
+      5e-4, momentum 0.9;
+
+    each inside the global-norm clip; centers SGD(center_lr) after the
+    1/lamda rescale (ref :310-312). The transformer branch comes with its
     models."""
     backbone = cfg.model.backbone
-    if backbone in ("vit", "swin_v1", "swin_v2", "plr_osnet"):
+    if backbone in ("vit", "swin_v1", "swin_v2"):
         raise NotImplementedError(
             f"the optimizer of '{backbone}' is not ported: the port trains "
-            "the CNN branch (seres18, baseline, resnet50, agw)")
-    schedule = warmup_cosine_schedule(
-        cfg.train.lr, cfg.train.epochs, steps_per_epoch,
-        cfg.train.warmup_epochs, cfg.train.hold_epochs, cfg.train.eta_min)
-    tx = ModelOptimizer(schedule, cfg.train.weight_decay,
-                        cfg.train.grad_clip,
-                        adam=cfg.train.num_instances > 0)
-    return tx, CenterSGD(cfg.loss.center_lamda, cfg.train.center_lr)
+            "the CNN branch and PLR-OSNet's")
+    t = cfg.train
+    center_tx = CenterSGD(cfg.loss.center_lamda, t.center_lr)
+    if backbone == "plr_osnet" and t.num_instances <= 0:
+        schedule = warmup_cosine_schedule(0.01, t.epochs, steps_per_epoch,
+                                          t.warmup_epochs, t.hold_epochs,
+                                          t.eta_min)
+        return Madgrad(schedule, 5e-4, t.grad_clip, momentum=0.9), center_tx
+    schedule = warmup_cosine_schedule(t.lr, t.epochs, steps_per_epoch,
+                                      t.warmup_epochs, t.hold_epochs,
+                                      t.eta_min)
+    tx = ModelOptimizer(schedule, t.weight_decay, t.grad_clip,
+                        adam=t.num_instances > 0)
+    return tx, center_tx
 
 
 @dataclasses.dataclass

@@ -96,17 +96,28 @@ def l2n(x: torch.Tensor) -> torch.Tensor:
 def embed_with_flip(model, images: torch.Tensor) -> torch.Tensor:
     """Dual-pass TTA embedding: the normal and the horizontally flipped
     batch through one forward; [l2n(feat) || l2n(logits)] averaged over the
-    two views and L2-normalized."""
+    two views and L2-normalized. A dual-head model (PLR-OSNet, whose
+    logits are a pair) embeds its feature alone, l2n(feat), as the
+    reference's eval path does (ref plr_osnet.py:107-110)."""
     both = torch.cat([images, torch.flip(images, dims=(2,))], dim=0)
     feats, logits = model(both)
     b = images.shape[0]
-    emb = torch.cat([l2n(feats.to(torch.float32)),
-                     l2n(logits.to(torch.float32))], dim=1)
+    if isinstance(logits, tuple):
+        emb = l2n(feats.to(torch.float32))
+    else:
+        emb = torch.cat([l2n(feats.to(torch.float32)),
+                         l2n(logits.to(torch.float32))], dim=1)
     return l2n(0.5 * (emb[:b] + emb[b:]))
 
 
 def embed_single(model, images: torch.Tensor) -> torch.Tensor:
-    """One view: l2n([l2n(feat) || l2n(logits)])."""
+    """One view: l2n([l2n(feat) || l2n(logits)]). A dual-head model is
+    refused: the JAX package's one-view embed (`extract_embeddings` and
+    the serving step without the flip) fails on its logits pair, so
+    there is no such path to follow."""
     f, lg = model(images)
+    if isinstance(lg, tuple):
+        raise ValueError("a dual-head model (plr_osnet) embeds only with "
+                         "tta_flip, as in the JAX package")
     return l2n(torch.cat([l2n(f.to(torch.float32)),
                           l2n(lg.to(torch.float32))], dim=1))

@@ -19,8 +19,11 @@ checkpoint here. A JAX `QuantState` crosses the same way. The way back,
 `flax_variables`, gives a module's variables in flax naming and layout:
 training writes its checkpoint with it. `train_state_from_flax` carries a
 whole JAX train state across (variables, centers, DCC tables, optimizer
-moments and count, XBM ring), so that both packages can resume from one
-point.
+moments and count, XBM ring; PLR-OSNet's two branches' tables), so that
+both packages can resume from one point. OSNet's depthwise kernels
+(kh, kw, 1, C) become (C, 1, kh, kw) by the same transpose, a 1-D conv's
+kernel (k, in, out) becomes (out, in, k), and PAM's `gamma` keeps its
+name.
 """
 
 from __future__ import annotations
@@ -159,7 +162,8 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
 
     for mname, m in model.named_modules():
         path = mname.split(".") if mname else []
-        is_conv = isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))
+        is_conv = isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d,
+                                 torch.nn.Linear))
         for name, t in m.named_parameters(recurse=False):
             arr = t.detach().to("cpu", torch.float32).numpy()
             leaf = name
@@ -195,12 +199,37 @@ def _find_states(opt_state, fields):
     return []
 
 
+def _opt_state_from_flax(tx, opt_state, names, device) -> dict:
+    """The port's optimizer state for `tx` from an optax chain state: Adam's
+    mu / nu and count, MADGRAD's grad_sum / grad_sum_sq / x0 and count, or
+    SGD's trace and the schedule's count."""
+    from ..train.optim import Madgrad
+
+    if isinstance(tx, Madgrad):
+        (m,) = _find_states(opt_state, ("grad_sum", "grad_sum_sq", "x0"))
+        return {"count": int(np.asarray(m.count)),
+                **{k: _named_tree(getattr(m, k), names, device)
+                   for k in ("grad_sum", "grad_sum_sq", "x0")}}
+    if tx.adam:
+        (a,) = _find_states(opt_state, ("mu", "nu", "count"))
+        return {"count": int(np.asarray(a.count)),
+                "mu": _named_tree(a.mu, names, device),
+                "nu": _named_tree(a.nu, names, device)}
+    (tr,) = _find_states(opt_state, ("trace",))
+    (sched,) = _find_states(opt_state, ("count",))
+    return {"count": int(np.asarray(sched.count)),
+            "trace": _named_tree(tr.trace, names, device)}
+
+
 def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
-    """The port's `ReIDTrainState` from a JAX `ReIDTrainState` (its arrays
-    read as numpy): the model with params and batch_stats, centers, DCC
-    tables, the Adam mu / nu and count (or the SGD trace), the XBM ring and
-    the step; the optimizers from `cfg` and `steps_per_epoch`, as the JAX
-    state's were built. The center optimizer has no state."""
+    """The port's train state from a JAX one (its arrays read as numpy):
+    from a `ReIDTrainState` the port's `ReIDTrainState` (the model with
+    params and batch_stats, centers, DCC tables, the optimizer's moments
+    and count, the XBM ring and the step); from PLR-OSNet's
+    `PLRTrainState` the port's (the model, both branches' centers and DCC
+    tables, the optimizer state, the step). The optimizers come from `cfg`
+    and `steps_per_epoch`, as the JAX state's were built; the center
+    optimizers have no state."""
     from ..losses import DCCState, HybridLossState, XBMState
     from ..models import build_model
     from ..train.state import ReIDTrainState, make_optimizers
@@ -208,11 +237,17 @@ def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
     def t(x, dtype=torch.float32):
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
+    def loss_state(ls):
+        return HybridLossState(
+            centers=t(ls.centers),
+            dcc=DCCState(lut_ccc=t(ls.dcc.lut_ccc),
+                         lut_icc=t(ls.dcc.lut_icc)))
+
     params = state.params
     variables = {"params": params, "batch_stats": state.batch_stats}
+    classifier = "classifier1" if "classifier1" in params else "classifier"
     model = build_model(cfg.model.backbone,
-                        num_classes=np.shape(
-                            params["classifier"]["kernel"])[1],
+                        num_classes=np.shape(params[classifier]["kernel"])[1],
                         num_cams=np.shape(params["cam_bias"])[0]
                         if "cam_bias" in params else cfg.model.num_cams,
                         dtype=getattr(torch, cfg.model.dtype), device=device,
@@ -220,26 +255,18 @@ def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
     load_flax_variables(model, variables)
     names = [n for n, _ in model.named_parameters()]
     tx, center_tx = make_optimizers(cfg, steps_per_epoch)
-    adam = _find_states(state.opt_state, ("mu", "nu", "count"))
-    if tx.adam:
-        (a,) = adam
-        opt = {"count": int(np.asarray(a.count)),
-               "mu": _named_tree(a.mu, names, device),
-               "nu": _named_tree(a.nu, names, device)}
-    else:
-        (tr,) = _find_states(state.opt_state, ("trace",))
-        (sched,) = _find_states(state.opt_state, ("count",))
-        opt = {"count": int(np.asarray(sched.count)),
-               "trace": _named_tree(tr.trace, names, device)}
-    ls = state.loss_state
-    loss_state = HybridLossState(
-        centers=t(ls.centers),
-        dcc=DCCState(lut_ccc=t(ls.dcc.lut_ccc), lut_icc=t(ls.dcc.lut_icc)))
+    opt = _opt_state_from_flax(tx, state.opt_state, names, device)
+    if hasattr(state, "loss1"):
+        from ..train.plr_train import PLRTrainState
+        return PLRTrainState(model=model, loss1=loss_state(state.loss1),
+                             loss2=loss_state(state.loss2), opt_state=opt,
+                             tx=tx, center_tx=center_tx,
+                             step=int(np.asarray(state.step)))
     xbm = None
     if state.xbm is not None:
         xbm = XBMState(feats=t(state.xbm.feats),
                        labels=t(state.xbm.labels, torch.int32),
                        ptr=int(np.asarray(state.xbm.ptr)))
-    return ReIDTrainState(model=model, loss_state=loss_state, opt_state=opt,
-                          tx=tx, center_tx=center_tx,
-                          step=int(np.asarray(state.step)), xbm=xbm)
+    return ReIDTrainState(model=model, loss_state=loss_state(
+        state.loss_state), opt_state=opt, tx=tx, center_tx=center_tx,
+        step=int(np.asarray(state.step)), xbm=xbm)

@@ -16,9 +16,15 @@ executes through flax method interceptors; here calibration hooks every
     (`ops/qblock.py`), and the other 3x3 stride-1 convs with both channel
     counts multiples of 128 run on `ops/qconv.py` - the routing order of
     `quantization_interceptor`;
+  * grouped convs (OSNet's depthwise 3x3) sum each group's few products
+    exactly in a float conv: f32 with TF32 off on the card (every partial
+    sum of a group stays below 2^24, asserted when the layer is built),
+    float64 on the CPU - the `feature_group_count` conv with s32
+    accumulation that the JAX package runs;
   * the remaining int8 layers (stem, 64-channel blocks, stride-2 convs, SE
     fcs of non-fused blocks, the triplet gates' 7x7 convs, EMA's convs,
-    classifier) multiply an im2col by
+    OSNet's 1x1 convs and gates, PLR-OSNet's PAM and SE convs, classifier)
+    multiply an im2col by
     `torch._int_mm` on the card (cuBLAS s8 x s8 -> s32, exact; K and N
     zero-padded to multiples of 8, M to more than 16), and in float64
     (exact) on the CPU.
@@ -201,9 +207,24 @@ def _im2col(xq: torch.Tensor, k: int, stride: int, padding: int,
     return out.reshape(b * ho * wo, k_cols), (b, ho, wo)
 
 
+def grouped_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int,
+                padding: int, groups: int) -> torch.Tensor:
+    """The exact s32 accumulator of a grouped conv of int8 NHWC `xq` with
+    the int8 OIHW `wq`, as f32: float64 on the CPU, f32 with TF32 off on
+    the card (exact while a group's products sum below 2^24, which
+    `QConv2d` checks)."""
+    dt = torch.float64 if xq.device.type == "cpu" else torch.float32
+    c = torch.backends.cudnn
+    with c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                 deterministic=c.deterministic, allow_tf32=False):
+        acc = F.conv2d(xq.permute(0, 3, 1, 2).to(dt), wq.to(dt),
+                       stride=stride, padding=padding, groups=groups)
+    return acc.permute(0, 2, 3, 1).to(torch.float32)
+
+
 class QConv2d(nn.Module):
     """An int8 conv: `_quantized_conv`, with the 3x3 stride-1 route to the
-    `conv3x3_s8` kernel."""
+    `conv3x3_s8` kernel and the grouped route (`grouped_acc`)."""
 
     def __init__(self, conv: Conv2d, kq: torch.Tensor, sw: torch.Tensor,
                  sx: float):
@@ -216,12 +237,37 @@ class QConv2d(nn.Module):
         self.stride = conv.stride[0]
         self.padding = conv.padding[0]
         self.sx = sx
+        self.groups = conv.groups
         self.register_buffer("scale", sw.to(torch.float32) * sx)
         # activations are always 4-D NHWC, so only the kernel decides
         self.route = qconv_applicable((0, 0, 0, 0), tuple(kq.shape),
                                       conv.stride, conv.padding,
                                       conv.groups, conv.dilation)
-        self.mm = _Int8Matmul(pack_conv_weight(kq))
+        if self.groups > 1:
+            # a group's products: at most K = Cin / groups * k * k terms
+            # of magnitude 127^2, exact in f32 below 2^24
+            assert kq[0].numel() * 127 * 127 < 2 ** 24, tuple(kq.shape)
+            self.register_buffer("wq", kq.contiguous())
+            self.mm = None
+        else:
+            self.mm = _Int8Matmul(pack_conv_weight(kq))
+
+    def acc(self, xq: torch.Tensor) -> torch.Tensor:
+        """The exact s32 accumulator (as f32) of the int8 NHWC input `xq`
+        off the K1 route: the grouped route, float64 on the CPU, or an
+        im2col times `torch._int_mm` on the card."""
+        if self.groups > 1:
+            return grouped_acc(xq, self.wq, self.stride, self.padding,
+                               self.groups)
+        if xq.device.type == "cpu":
+            return conv_acc_plain(xq, self.mm.wt, self.k, self.stride,
+                                  self.padding)
+        rows, (b, ho, wo) = _im2col(xq, self.k, self.stride, self.padding,
+                                    self.mm.wt_pad.shape[1])
+        # more than 16 output pixels an image: enough rows for any batch of
+        # one image or more
+        return self.mm.acc(rows, pad_rows=ho * wo <= 16).reshape(
+            b, ho, wo, -1)
 
     def forward(self, x):
         xq = quantize_input(x, self.sx)
@@ -229,17 +275,7 @@ class QConv2d(nn.Module):
             out = conv3x3_s8(xq, self.mm.wt, self.scale, out_dtype=self.dtype)
             return out if self.bias is None else out + self.bias.to(
                 self.dtype)
-        if xq.device.type == "cpu":
-            acc = conv_acc_plain(xq, self.mm.wt, self.k, self.stride,
-                                 self.padding)
-        else:
-            rows, (b, ho, wo) = _im2col(xq, self.k, self.stride,
-                                        self.padding, self.mm.wt_pad.shape[1])
-            # more than 16 output pixels an image: enough rows for any
-            # batch of one image or more
-            acc = self.mm.acc(rows, pad_rows=ho * wo <= 16).reshape(
-                b, ho, wo, -1)
-        return scale_add(acc, self.scale, self.bias).to(self.dtype)
+        return scale_add(self.acc(xq), self.scale, self.bias).to(self.dtype)
 
 
 class QLinear(nn.Module):
@@ -255,12 +291,14 @@ class QLinear(nn.Module):
         self.register_buffer("scale", sw.to(torch.float32) * sx)
         self.mm = _Int8Matmul(kq)
 
+    def acc(self, xq: torch.Tensor) -> torch.Tensor:
+        """The exact s32 accumulator (as f32) of the int8 input `xq`."""
+        lead = xq.shape[:-1]
+        return self.mm.acc(xq.reshape(-1, xq.shape[-1])).reshape(*lead, -1)
+
     def forward(self, x):
         xq = quantize_input(x, self.sx)
-        lead = xq.shape[:-1]
-        acc = self.mm.acc(xq.reshape(-1, xq.shape[-1]))
-        return scale_add(acc.reshape(*lead, -1), self.scale,
-                         self.bias).to(self.dtype)
+        return scale_add(self.acc(xq), self.scale, self.bias).to(self.dtype)
 
 
 class QSEBasicBlock(nn.Module):

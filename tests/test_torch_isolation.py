@@ -105,3 +105,19 @@ def test_attention_slice_module_is_checked(mod):
     BatchRenorm and the 1-D layers) are among those the checks above walk
     (no banned import in their source, each imports with JAX blocked)."""
     test_training_slice_module_is_checked(mod)
+
+
+OSNET_SLICE = ["reid_tpu_torch.models.osnet",
+               "reid_tpu_torch.models.attention_modules",
+               "reid_tpu_torch.train.optim",
+               "reid_tpu_torch.train.plr_train",
+               "reid_tpu_torch.utils.torch_convert"]
+
+
+@pytest.mark.parametrize("mod", OSNET_SLICE)
+def test_osnet_slice_module_is_checked(mod):
+    """OSNet's and PLR-OSNet's modules (the models, their attention,
+    MADGRAD, the PLR loop, the converter) are among those the checks above
+    walk (no banned import in their source, each imports with JAX
+    blocked)."""
+    test_training_slice_module_is_checked(mod)

@@ -53,6 +53,12 @@ Tolerances:
     noise); and, after two warm-up steps, a bf16 step under
     torch.cuda's sync debug mode "error": the step reads nothing back
     and copies nothing from the host.
+  * OSNet's depthwise int8 conv (the grouped route: an f32 conv with TF32
+    off on the card, float64 on the CPU): card and CPU bit-equal, the
+    accumulator exact at its extreme (9 x 127^2).
+  * PLR-OSNet's train step (MADGRAD without PK sampling, and Adam with
+    it), after two warm-up steps, under the sync debug mode "error", with
+    finite losses and parameters.
 """
 
 import numpy as np
@@ -748,3 +754,55 @@ def test_train_step_f32_on_card_matches_cpu(cuda):
     assert float((u_g - u_c).norm()) <= 0.03 * float(u_c.norm())
     for a, b in zip(t_g, t_c):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+def test_grouped_int8_conv_on_card_matches_cpu(cuda):
+    from reid_tpu_torch.models.layers import Conv2d
+    from reid_tpu_torch.utils.quantize import QConv2d, grouped_acc
+    gen = torch.Generator().manual_seed(0)
+    conv = Conv2d(64, 64, 3, padding=1, dtype=torch.bfloat16,
+                  keep_f32=True, groups=64)
+    conv.reset_parameters(gen)
+    kq = torch.randint(-127, 128, (64, 1, 3, 3), generator=gen,
+                       dtype=torch.int8)
+    sw = torch.rand(64, generator=gen) * 1e-2 + 1e-3
+    q_cpu = QConv2d(conv, kq, sw, 0.05)
+    q_card = QConv2d(conv, kq.to(cuda), sw.to(cuda), 0.05).to(cuda)
+    x = torch.randn((16, 32, 16, 64), generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        want = q_cpu(x)
+        got = q_card(x.to(cuda)).cpu()
+    assert torch.equal(got, want)
+    xq = torch.full((1, 4, 4, 64), 127, dtype=torch.int8, device=cuda)
+    wq = torch.full((64, 1, 3, 3), -127, dtype=torch.int8, device=cuda)
+    assert float(grouped_acc(xq, wq, 1, 1, 64)[0, 1, 1, 0]) == \
+        -9 * 127 * 127
+
+
+@pytest.mark.parametrize("instances", [0, 4])
+def test_plr_train_step_on_card_makes_no_host_sync(cuda, instances):
+    from reid_tpu_torch.config import (Config, ModelConfig, TrainConfig)
+    from reid_tpu_torch.train.optim import Madgrad
+    from reid_tpu_torch.train.plr_train import (create_plr_train_state,
+                                                make_plr_train_step)
+    cfg = Config(model=ModelConfig(backbone="plr_osnet", num_classes=8,
+                                   dtype="bfloat16"),
+                 train=TrainConfig(batch_size=16, num_instances=instances))
+    state = create_plr_train_state(cfg, 10, device="cuda")
+    assert isinstance(state.tx, Madgrad) == (instances == 0)
+    step = make_plr_train_step(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"images": torch.randn((16, 256, 128, 3), generator=gen,
+                                   device=cuda),
+             "labels": torch.arange(16, device=cuda) // 2 % 8}
+    for _ in range(2):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 3
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert all(bool(torch.isfinite(p).all()) for p in state.params())

@@ -30,10 +30,32 @@ JAX package's, one run each at the cheapest settings that reach the
     whose random-init classifier sums to values near 0). `--renorm` with
     a ResNet backbone stops at the parser.
 
+  * `track_main --backbone osnet_x0_25` and `--backbone plr_osnet`, each
+    in bf16 and with `--int8`, on the same scene with deepocsort, both
+    sides from one set of weights (the port's init, PAM's `gamma` at 0.5
+    so that the attention shows; the JAX run's checkpoint restore hands
+    it them) and, under `--int8`, one QuantState (JAX's): the same (frame,
+    id) rows with boxes within 0.02 px; the tracker's width from the
+    probe forward,
+    512 + classes for OSNet and PLR-OSNet's 2,560-wide feature alone;
+    neither K1 nor the fused SE block is ever taken (OSNet's 3x3 convs
+    are depthwise). Why deepocsort: a random-init OSNet embeds every crop
+    of the scene within a cosine distance of a few 1e-3 of every other
+    (SERes18: 2-3e-2), so strongsort's cost, 0.995 of it appearance,
+    separates two candidates by less than the two packages' bf16 embeds
+    differ (up to 1.6e-5 a row, tests/test_torch_osnet.py), and two tracks
+    now and then take each other's detection (read: 16-34% of boxes moved,
+    the (frame, id) rows identical); deepocsort weighs the appearance by
+    how well it tells the candidates apart.
+  * `inference_main --backbone plr_osnet` on the Market-style tree at
+    80x40 (f32, re-ranking on; D = 2,560), PAM's `gamma` non-zero: CMC
+    identical at every rank, mAP within 1e-6.
+
 The `train_main --backbone resnet50` run is in
 tests/test_torch_baseline_train.py; the train steps of cares18, emares18
 and a renorm SERes18 against JAX's are in
-tests/test_torch_cares_train.py."""
+tests/test_torch_cares_train.py; OSNet's and PLR-OSNet's training in
+tests/test_torch_plr_train.py."""
 
 import dataclasses
 
@@ -283,3 +305,103 @@ def test_train_main_renorm_refuses_resnets(tmp_path):
     assert {n for n in MODELS if supports_renorm(n)} == {
         "seres18", "cares18", "emares18"}
     assert not supports_renorm("osnet")
+
+
+def osnet_variables(backbone, num_classes, gamma=0.5):
+    """The port's init of `backbone` as flax variables, every PAM `gamma`
+    at `gamma`."""
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils.flax_bridge import flax_variables
+    v = flax_variables(build_model(backbone, num_classes=num_classes,
+                                   device="cpu"))
+    for att in ("att1", "att2"):
+        if att in v["params"]:
+            v["params"][att]["pam"]["gamma"] = np.asarray([gamma],
+                                                          np.float32)
+    return v
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("backbone", ["osnet_x0_25", "plr_osnet"])
+def test_track_main_osnet_matches_jax(tmp_path, monkeypatch, backbone,
+                                      int8):
+    import reid_tpu.utils as jutils
+    import reid_tpu.utils.quantize as jqz
+    import reid_tpu_torch.utils.quantize as tqz
+    from reid_tpu.cli import track_main as jax_track_main
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.tracking import pipeline as tpipe
+    from reid_tpu_torch.utils.flax_bridge import (quant_state_from_flax,
+                                                  save_npz)
+
+    v = osnet_variables(backbone, 16)
+    ckpt = str(tmp_path / "w.npz")
+    save_npz(ckpt, v)
+    monkeypatch.setattr(jutils, "restore_checkpoint",
+                        lambda path, tpl: jax.tree_util.tree_map(
+                            jnp.asarray, v))
+    fdir, det = write_scene(tmp_path)
+    flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
+             "--crop_hw", "64", "32", "--num_classes", "16", "--max_dets",
+             "8", "--backbone", backbone, "--ckpt", ckpt] + (
+                 ["--int8"] if int8 else []) + [
+                     "--tracking_method", "deepocsort"]
+    calls = force_jax_routes(monkeypatch)
+    qstates = []
+    jquantize = jqz.quantize
+
+    def keep_qstate(*a, **kw):
+        qstates.append(jquantize(*a, **kw))
+        return qstates[-1]
+    monkeypatch.setattr(jqz, "quantize", keep_qstate)
+    out_j = str(tmp_path / "jax.txt")
+    n_j = jax_track_main(flags + ["--save_txt", out_j])
+    assert calls == {"qconv": 0, "qblock": 0}
+    assert len(qstates) == int(int8)
+
+    if int8:
+        monkeypatch.setattr(tqz, "quantize",
+                            lambda model, batches, select=None:
+                            quant_state_from_flax(qstates[0], "cpu"))
+    monkeypatch.setattr(tqz, "conv3x3_s8", None)
+    monkeypatch.setattr(tqz, "se_basic_block_s8", None)
+    widths = []
+    init = tpipe.TrackingPipeline.__init__
+
+    def spy(self, cfg, embed_fn, feat_dim, *a, **kw):
+        widths.append(feat_dim)
+        init(self, cfg, embed_fn, feat_dim, *a, **kw)
+    monkeypatch.setattr(tpipe.TrackingPipeline, "__init__", spy)
+    out_t = str(tmp_path / "torch.txt")
+    n_t = cli.track_main(flags + ["--save_txt", out_t], device="cpu")
+    assert widths == [2560 if backbone == "plr_osnet" else 512 + 16]
+    assert n_t == n_j > 20
+    rj, rt = read_mot(out_j), read_mot(out_t)
+    np.testing.assert_array_equal(rt[:, :2], rj[:, :2])
+    np.testing.assert_allclose(rt[:, 2:6], rj[:, 2:6], atol=0.02)
+
+
+def test_inference_main_plr_osnet_matches_jax(market_tree, tmp_path,
+                                              monkeypatch):
+    import reid_tpu.utils as jutils
+    from reid_tpu.cli import inference_main as jax_inference_main
+    from reid_tpu_torch.cli import inference
+    from reid_tpu_torch.utils.flax_bridge import save_npz
+
+    v = osnet_variables("plr_osnet", 6, gamma=0.3)
+    monkeypatch.setattr(jutils, "restore_checkpoint",
+                        lambda path, state: state.replace(
+                            params=jax.tree_util.tree_map(jnp.asarray,
+                                                          v["params"]),
+                            batch_stats=jax.tree_util.tree_map(
+                                jnp.asarray, v["batch_stats"])))
+    npz = str(tmp_path / "plr.npz")
+    save_npz(npz, v)
+    flags = ["--root", market_tree, "--height", "80", "--width", "40",
+             "--bs", "8", "--backbone", "plr_osnet", "--ckpt"]
+    keep = {}
+    cmc_j, map_j = jax_inference_main(flags + ["unused"])
+    cmc_t, map_t = inference(flags + [npz], device="cpu", keep=keep)
+    assert keep["qf"].shape[1] == 2560
+    np.testing.assert_array_equal(cmc_t, np.asarray(cmc_j))
+    assert abs(map_t - map_j) <= 1e-6, (map_t, map_j)
