@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 17 min of command
+    python3 chip_smoke.py             # on one card, about 19 min of command
     python3 chip_smoke.py --profile   # the same, tracing the track runs,
                                       # a chunk of each stream operating
                                       # point and the retrieval run
@@ -104,10 +104,10 @@ Phases, one JSON line each:
   4d. streams multi-stream tracking (`tracking.streams.make_stream_tracker`)
               with the CLI's int8 embed at the two operating points of
               STREAM_POINTS, each stream its own seeded scene:
-              multistream8 (8 streams, --chunk 64, 4 chunks, 480x640, 16
+              multistream8 (8 streams, --chunk 64, 3 chunks, 480x640, 16
               boxes in 32 slots, 64 track slots: one embed call of 8,192
               crops a chunk) and mot16_load_multistream8 (8 streams,
-              --chunk 8, 6 chunks, 1080p, 50 boxes in 64 slots, 128 track
+              --chunk 8, 4 chunks, 1080p, 50 boxes in 64 slots, 128 track
               slots: 3,200 crops),
               then botsort with GMC at the second on PAN scenes (each
               stream's device affines within 1 px of the pan). Each chunk's
@@ -185,7 +185,7 @@ Phases, one JSON line each:
               tree written to a temporary directory (751 ids of 17
               images, two colours an id, 1 query and 2 gallery images an
               id): SERes18-IBN in bf16 at 256x128, 751 classes, --bs 64
-              --instance 4, two epochs, --export. The step period on the
+              --instance 4, one epoch, --export. The step period on the
               device's clock (CUDA events between steps; median, 5th and
               95th percentile, min, max), images/s, the host's wait on
               the loader, the DCC seeding's seconds, peak memory and the
@@ -273,6 +273,33 @@ OSNet and PLR-OSNet, in the same run:
               phase 14's card-vs-CPU f32 step for osnet and for PLR-OSNet
               (its Adam branch), the limits at twice the CPU-to-CPU
               spread where that exceeds SERes18's (`spread`).
+ViT-t with SIE and Swin-T v1 / v2 at 448x224, in the same run:
+ 29. track    `--backbone vit`, then `swin_v1`, as phase 17 with
+              `--crop_hw 448 224` (ZOO_TRACK_FRAMES frames, --chunk 32):
+              bf16 then `--int8`, and `swin_v2` in bf16 (TRANSFORMER_TRACK):
+              fps, the crop_embed ms a frame, the stage split and peak
+              memory; K1 and K2 launch 0 times (no conv of theirs is 3x3
+              with 128-multiple channels); the embed takes the crops in
+              slices of `cli.TRANSFORMER_EMBED_SLICE`;
+ 30. embed    the three in bf16 at full width, card against CPU on 16
+              crops of 448x224 (cosine >= 0.999 a row), and each `--int8`
+              embed against its f32 embed on the card (cosine >= 0.99, no
+              K1 or K2 launch), as phase 26;
+ 31. retrieval `--backbone vit` in f32 on a split of phase 6's sizes, ids
+              and cameras at 448x224 (`market_splits_at`, drawn on the
+              card; D = 1,135): seconds, CMC/mAP, peak memory, launches;
+              K6 at D = 1,135 and K7 held against their plain versions on
+              that run's operands and timed, as phase 19;
+ 32. train    the transformer step (`make_train_step`, the library the
+              JAX package can run, with `cfg.model.feat_dim` at the
+              model's width; `train_main` refuses these backbones) of ViT
+              with cams and of Swin v1 at 448x224, batch 64, bf16,
+              dropout 0.1 drawn on the card, under plain SGD (PK
+              sampling) and Adam: ms a step on the device's clock,
+              launches, device time, idle share and the sync check
+              (`phase_train_transformer`); before it, phase 14's
+              card-vs-CPU f32 step of each at a batch of 8 with dropout 0,
+              the limits as phase 28's (`spread`).
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -357,13 +384,14 @@ N_QUERY, N_GALLERY, N_IDS, N_CAMS, N_CLASSES = 3368, 19732, 750, 6, 751
 # the multi-stream operating points (bench.py:315-386, :390, :908-911):
 # S streams, `n_real` boxes a frame in `max_dets` slots; each stream's crop
 # budget is chunk x n_real, so a chunk embeds S x chunk x n_real crops;
-# `n_chunks` chunks a run, all but the first timed (a few seconds)
+# `n_chunks` chunks a run, all but the first timed (a few seconds; cut
+# from 4 and 6 in PR 15 for the smoke's time limit)
 STREAM_POINTS = {
     "multistream8": dict(streams=8, chunk=64, hw=(480, 640), n_real=16,
-                         max_dets=32, max_tracks=64, n_chunks=4),
+                         max_dets=32, max_tracks=64, n_chunks=3),
     "mot16_load_multistream8": dict(streams=8, chunk=8, hw=(1080, 1920),
                                     n_real=50, max_dets=64,
-                                    max_tracks=128, n_chunks=6)}
+                                    max_tracks=128, n_chunks=4)}
 
 RESULTS = {}
 # the script's start, for each line's seconds since it (`t_s`)
@@ -1144,8 +1172,8 @@ def phase_retrieval(query, gallery, make_s, profile_to=None, int8=False,
          cmc5=float(cmc[4]), cmc10=float(cmc[9]), mAP=mean_ap,
          stage_s=timing, wall_s=wall, data_s=make_s, peak_mem_gb=peak / 1e9,
          device_kernel_ms=busy_ms, launches=counts, site_launches=sites)
-    width = {"agw": 2048 + N_CLASSES, "plr_osnet": 2560}.get(
-        backbone, 512 + N_CLASSES)
+    width = {"agw": 2048 + N_CLASSES, "plr_osnet": 2560,
+             "vit": 384 + N_CLASSES}.get(backbone, 512 + N_CLASSES)
     assert dim == width and tuple(dists.shape) == (n, n)
     assert bool(torch.isfinite(dists).all()) and float(dists.min()) >= 0.0
     assert np.all(np.isfinite(cmc)) and np.all(np.diff(cmc) >= 0)
@@ -1181,7 +1209,7 @@ def phase_distance_kernels(kind, keep, suffix="", path="retrieval",
     Jaccard call gave them, timed beside the plain version, the bound and
     torch.cdist: the run's de-biased unit features (K6), and the V encoding
     recomputed from them and their ranking (K7); with `full`, one full
-    N x N L1 call of the kernel and of torch.cdist too."""
+    N x N L1 call of the kernel too."""
     import torch
     from reid_tpu_torch.cli import full_f32
     from reid_tpu_torch.ops import distance as dist
@@ -1256,16 +1284,19 @@ def phase_distance_kernels(kind, keep, suffix="", path="retrieval",
             v_nonzeros_per_row_max=int(nnz.max()),
             max_abs_err=err.max().item(),
             ms=time_ms(lambda: dist.l1(slab, v)),
-            plain_ms=time_ms(lambda: dist.l1_plain(slab, v), reps=2, warm=1),
-            library_ms=time_ms(lambda: torch.cdist(slab, v, p=1), reps=2,
-                               warm=1),
+            # the plain version takes ~5.6 s a call: one timed call on the
+            # extra paths' rows
+            plain_ms=time_ms(lambda: dist.l1_plain(slab, v),
+                             reps=2 if full else 1, warm=1 if full else 0),
+            library_ms=time_ms(lambda: torch.cdist(slab, v, p=1),
+                               reps=2 if full else 1,
+                               warm=1 if full else 0),
             bound_ms=bms, bound_by=by)
         del err, nnz
         if full:
+            # torch.cdist's full call (21.4 s, PR 6) is no longer timed here:
+            # the smoke's time limit
             row["full_ms"] = time_ms(lambda: dist.l1(v, v), reps=1, warm=0)
-            # one call, about 20 s
-            row["full_library_ms"] = time_ms(
-                lambda: torch.cdist(v, v, p=1), reps=1, warm=0)
             row["full_bound_ms"], _ = bound(2 * n * n * d,
                                             4 * (2 * n * d + n * n), kind,
                                             "fp32_alu")
@@ -2053,8 +2084,9 @@ def phase_artifact(gallery, tmp, dev):
 
 # the training operating point: Market-1501's train split (751 ids; its
 # 12,936 images as 17 an id), SERes18-IBN at 256x128 in bf16, PK batches
-# of 64 = 16 ids x 4, two epochs
-TRAIN_IDS, TRAIN_PER_ID, TRAIN_EPOCHS = 751, 17, 2
+# of 64 = 16 ids x 4, one epoch (two until PR 14; cut for the smoke's
+# time limit)
+TRAIN_IDS, TRAIN_PER_ID, TRAIN_EPOCHS = 751, 17, 1
 # the continual phase's target: DukeMTMC-reID's train split, 16,522 images
 # of 702 ids (376 ids of 24 images and 326 of 23)
 DUKE_IDS, DUKE_COUNTS = 702, [24] * 376 + [23] * 326
@@ -2167,7 +2199,8 @@ def step_profile(state, cfg, batches, reps=5, step=None,
     if step is None:
         step = make_train_step(cfg, generator=torch.Generator("cuda")
                                .manual_seed(7))
-    batches = [{k: b[k] for k in ("images", "labels")} for b in batches]
+    batches = [{k: b[k] for k in ("images", "labels", "cams") if k in b}
+               for b in batches]
     for b in batches[:2]:
         step(state, b)
     torch.cuda.synchronize()
@@ -2331,7 +2364,13 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
     and PLR-OSNet are more so (depthwise convs and ~40 train-mode norms in
     series; PLR-OSNet's max-pooled local branch): the two CPU algorithms
     read 1.7% / 1.5% of the gradient's norm, update cosines 0.9950 /
-    0.9957 and 10% / 9.2% of its norm (CPU readings)."""
+    0.9957 and 10% / 9.2% of its norm (CPU readings).
+
+    The transformers (`TRANSFORMER_WIDTH`) take their step as the library
+    the JAX package can run: `cfg.model.feat_dim` at the model's width, at
+    448x224 with a batch of 8, ViT with cams, on their Adam branch (no
+    PK sampling); both sides are built with dropout 0, since the card's
+    and the CPU's generators draw different masks."""
     import torch
     from reid_tpu_torch.cli import full_f32
     from reid_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -2345,15 +2384,22 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
     from reid_tpu_torch.utils.flax_bridge import (flax_variables,
                                                   load_flax_variables)
 
-    b = CARD_CPU_BATCH_OSNET if backbone in OSNET_BACKBONES \
-        else CARD_CPU_BATCH
+    small = backbone in OSNET_BACKBONES + tuple(TRANSFORMER_WIDTH)
+    b = CARD_CPU_BATCH_OSNET if small else CARD_CPU_BATCH
     c = N_CLASSES
-    cfg = Config(model=ModelConfig(backbone=backbone, num_classes=c,
-                                   dtype="float32", renorm=renorm),
-                 train=TrainConfig(batch_size=b, num_instances=4))
+    transformer = backbone in TRANSFORMER_WIDTH
+    hw = TRANSFORMER_HW if transformer else (256, 128)
+    extra = dict(dropout=0.0) if transformer else {}
+    # the transformers' Adam branch is the one without PK sampling; its
+    # first moment gives the gradient as the other backbones' Adam does
+    cfg = Config(model=ModelConfig(
+        backbone=backbone, num_classes=c, dtype="float32", renorm=renorm,
+        feat_dim=TRANSFORMER_WIDTH.get(backbone, 512)),
+        train=TrainConfig(batch_size=b,
+                          num_instances=0 if transformer else 4))
     variables = flax_variables(build_model(
         backbone, c, dtype=torch.float32, device="cpu",
-        generator=torch.Generator().manual_seed(0), renorm=renorm))
+        generator=torch.Generator().manual_seed(0), renorm=renorm, **extra))
 
     def past_warmup(node):
         for k, v in node.items():
@@ -2365,10 +2411,11 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
     rng = np.random.default_rng(0)
     lut = rng.normal(size=(2, c, c)).astype(np.float32)
     lut /= np.linalg.norm(lut, axis=2, keepdims=True)
-    images = rng.integers(0, 256, (b, 256, 128, 3), dtype=np.uint8)
+    images = rng.integers(0, 256, (b, *hw, 3), dtype=np.uint8)
     labels = np.repeat(np.arange(0, 4 * 37, 37)[:b // 4], 4).astype(
         np.int32)
-    draws = augment_draws(torch.Generator().manual_seed(1), b, 256, 128,
+    cams = (np.arange(b) % N_CAMS).astype(np.int32)
+    draws = augment_draws(torch.Generator().manual_seed(1), b, *hw,
                           device="cpu")
     out = {}
 
@@ -2393,7 +2440,7 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
             step = make_plr_train_step(cfg)
         else:
             model = build_model(backbone, c, dtype=torch.float32,
-                                device=dev, renorm=renorm)
+                                device=dev, renorm=renorm, **extra)
             load_flax_variables(model, variables)
             state = create_train_state(model, cfg, 100,
                                        torch.Generator().manual_seed(2))
@@ -2402,6 +2449,8 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
             batch = {"images": torch.from_numpy(images).to(dev),
                      "labels": torch.from_numpy(labels).to(dev),
                      "aug_draws": {k: v.to(dev) for k, v in draws.items()}}
+            if backbone == "vit":
+                batch["cams"] = torch.from_numpy(cams).to(dev)
             step = make_train_step(cfg)
         start = [p.detach().clone() for p in model.parameters()]
         t0 = time.perf_counter()
@@ -2464,7 +2513,7 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
                                      else f" {backbone}")
          + (" --renorm" if renorm else ""),
          backbone=backbone, renorm=renorm, batch=b, classes=c,
-         hw=[256, 128], **res)
+         hw=list(hw), **res)
     assert res["loss_rel"] <= 1e-4, res
     assert res["grad_rel_norm"] <= limits["grad_rel_norm"], res
     assert res["update_cosine"] >= limits["update_cosine"] and \
@@ -2619,6 +2668,14 @@ OSNET_BACKBONES = ("osnet", "plr_osnet")
 # PLR-OSNet's train steps at the training operating point: timed steps
 # after PLR_WARM untimed ones
 PLR_BATCH, PLR_WARM, PLR_STEPS = 64, 2, 6
+# ViT-t and Swin-T: their feature width (the train step's feat_dim) and
+# the input size the JAX package gives them for Market and Duke
+TRANSFORMER_WIDTH = {"vit": 384, "swin_v1": 96, "swin_v2": 96}
+TRANSFORMER_HW = (448, 224)
+# phase 29's runs of each transformer, and phase 32's backbones
+TRANSFORMER_TRACK = {"vit": ("bf16", "int8"), "swin_v1": ("bf16", "int8"),
+                     "swin_v2": ("bf16",)}
+TRANSFORMER_STEP = ("vit", "swin_v1")
 
 
 def nonzero_w_bn(model, seed=3, std=0.1):
@@ -2673,22 +2730,28 @@ def phase_zoo_kernels(kind, crops, table=None, counts=None):
 
 
 def phase_track_zoo(tmp, n_frames, chunk, backbone="resnet50",
-                    k1_per_call=None, k1=True):
+                    k1_per_call=None, k1=True, crop_hw=(256, 128),
+                    modes=("bf16", "int8")):
     """The track path with `--backbone backbone` at phase 4's operating
-    point, --chunk `chunk`: the default bf16 embed (no kernel of ours)
-    and `--int8` (K1 at the backbone's sites, no fused block; without
-    `k1`, no launch of K1 or K2 at all); fps and the stage split of each.
-    With `k1_per_call`, K1's launches must be exactly that many an embed
-    call (the calls counted at the 256 -> 512 site, which each trunk of
-    the SERes18 family has once)."""
+    point with `crop_hw` crops, --chunk `chunk`: the default bf16 embed
+    (no kernel of ours) and `--int8` (K1 at the backbone's sites, no fused
+    block; without `k1`, no launch of K1 or K2 at all), as `modes` names
+    them; fps, the stage split and peak device memory of each. With
+    `k1_per_call`, K1's launches must be exactly that many an embed call
+    (the calls counted at the 256 -> 512 site, which each trunk of the
+    SERes18 family has once). Returns the last mode's run."""
+    import torch
+
     fdir, det = write_scene(tmp, n_frames)
     base = ["--detections", det, "--frames_dir", fdir, "--backbone",
             backbone, "--max_dets", "64", "--num_classes", "751",
-            "--crop_hw", "256", "128", "--chunk", str(chunk)]
+            "--crop_hw", *map(str, crop_hw), "--chunk", str(chunk)]
     runs = {}
-    for mode in ("bf16", "int8"):
+    for mode in modes:
+        torch.cuda.reset_peak_memory_stats()
         run = run_track(base + (["--int8"] if mode == "int8" else [])
                         + ["--save_txt", os.path.join(tmp, mode + ".txt")])
+        run["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         run.pop("affines")
         if mode == "int8" and k1_per_call:
             calls = run["site_launches"].get(
@@ -2703,10 +2766,10 @@ def phase_track_zoo(tmp, n_frames, chunk, backbone="resnet50",
         runs[mode] = run
     assert not runs["bf16"]["launches"], runs["bf16"]["launches"]
     if not k1:
-        launches = runs["int8"]["launches"]
+        launches = runs[modes[-1]]["launches"]
         assert launches.get("conv3x3_s8", 0) == 0, launches
         assert launches.get("se_basic_block_s8", 0) == 0, launches
-        return runs["int8"]
+        return runs[modes[-1]]
     assert runs["int8"]["launches"].get("conv3x3_s8", 0) > 0, runs["int8"]
     assert "se_basic_block_s8" not in runs["int8"]["launches"]
     if k1_per_call:
@@ -2717,7 +2780,7 @@ def phase_track_zoo(tmp, n_frames, chunk, backbone="resnet50",
 
 
 def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
-                    label="embed zoo", int8_cosine=0.95):
+                    label="embed zoo", int8_cosine=0.95, hw=(256, 128)):
     """Eval mode, card against CPU: the `card_vs_cpu` backbones (agw with
     its non-local `w_bn` non-zero) in bf16 embed the same 16 crops on
     both, [feat || logits] held by cosine (>= 0.999 a row) and by the
@@ -2726,15 +2789,16 @@ def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
     of the same weights on the card, for each backbone of `int8_counts`
     (ZOO_K1_COUNT): cosine >= `int8_cosine` a row, and exactly its count
     of K1 launches in its int8 embed call and none of K2's. A dual-head
-    model (PLR-OSNet) embeds its feature alone. Returns each backbone's
-    launches at its call sites in that call."""
+    model (PLR-OSNet) embeds its feature alone. The crops are `hw` (the
+    transformers': 448x224). Returns each backbone's launches at its call
+    sites in that call."""
     import torch
     from reid_tpu_torch import cli
     from reid_tpu_torch.models import build_model
     from reid_tpu_torch.ops import _lib
     from reid_tpu_torch.utils.flax_bridge import save_npz, flax_variables
 
-    crops = torch.randn((16, 256, 128, 3),
+    crops = torch.randn((16, *hw, 3),
                         generator=torch.Generator().manual_seed(1))
     res = {}
 
@@ -2773,7 +2837,7 @@ def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
             model = model.cuda()
             with torch.inference_mode(), cli.full_f32():
                 f32 = embed(model, crops.cuda())
-                fn, _ = cli.build_embed(backbone, N_CLASSES, (256, 128),
+                fn, _ = cli.build_embed(backbone, N_CLASSES, hw,
                                         "cuda", ckpt=ckpt, int8=True)
                 torch.cuda.synchronize()
                 _lib.reset_launch_counts()
@@ -2923,6 +2987,115 @@ def phase_train_plr(instances):
     return res
 
 
+def market_splits_at(hw):
+    """Query and gallery of phase 6's sizes, ids and cameras at `hw`
+    (448x224 for the transformers), the pixels drawn on the card: each
+    identity's colour from one palette plus uniform noise in [-25, 25),
+    as `synthetic_dataset` makes them (its host generator would take a
+    minute at this size). Returns (query, gallery, seconds)."""
+    import torch
+    from reid_tpu_torch.data.dataset import ReIDDataset
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    palette = torch.randint(40, 220, (N_IDS, 3), generator=gen,
+                            device="cuda", dtype=torch.int16)
+
+    def make(n, shift):
+        images = np.empty((n, *hw, 3), np.uint8)
+        pids = np.arange(n) % N_IDS
+        for s0 in range(0, n, 2048):
+            e = min(n, s0 + 2048)
+            v = torch.randint(-25, 25, (e - s0, *hw, 3), generator=gen,
+                              device="cuda", dtype=torch.int16)
+            v += palette[torch.as_tensor(pids[s0:e], device="cuda")][
+                :, None, None]
+            images[s0:e] = v.clamp_(0, 255).to(torch.uint8).cpu().numpy()
+        records = [(f"<synthetic-{i}>", int(pids[i]),
+                    (i // N_IDS + shift) % N_CAMS, 0) for i in range(n)]
+        return ReIDDataset(records, N_IDS, *hw).preload(images)
+
+    t0 = time.perf_counter()
+    query, gallery = make(N_QUERY, 3), make(N_GALLERY, 0)
+    return query, gallery, time.perf_counter() - t0
+
+
+def phase_train_transformer(backbone, instances):
+    """The transformer train step (`train.steps.make_train_step`, the
+    library the JAX package can run: `cfg.model.feat_dim` at the model's
+    width, `train_main` refuses these backbones) on the card at 448x224,
+    a batch of PLR_BATCH in bf16 with N_CLASSES classes, dropout 0.1
+    drawn on the card: plain SGD without momentum under PK sampling
+    (`instances` 4: 16 ids x 4), Adam without (0); ViT with cams (its
+    SIE table), Swin without. Timed and traced as `phase_train_plr` (one
+    traced step: a traced step takes ~4 s): ms a step on the device's
+    clock (median, min, max), images/s, peak memory, the sync check,
+    launches and device time a step, the idle share."""
+    import statistics
+
+    import torch
+    from reid_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.train.state import create_train_state
+    from reid_tpu_torch.train.steps import make_train_step
+
+    b = PLR_BATCH
+    cfg = Config(model=ModelConfig(backbone=backbone, num_classes=N_CLASSES,
+                                   feat_dim=TRANSFORMER_WIDTH[backbone]),
+                 train=TrainConfig(batch_size=b, num_instances=instances))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(backbone, N_CLASSES, dtype=torch.bfloat16,
+                        device="cuda", input_hw=TRANSFORMER_HW)
+    state = create_train_state(model, cfg, 200,
+                               torch.Generator().manual_seed(2))
+    assert state.tx.adam == (instances == 0) and not state.tx.momentum
+    step = make_train_step(cfg, generator=torch.Generator("cuda")
+                           .manual_seed(11))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batches = []
+    for i in range(4):
+        ids = torch.randperm(N_CLASSES, generator=gen, device="cuda")
+        labels = ids[:b // 4].repeat_interleave(4) if instances else \
+            torch.randint(0, N_CLASSES, (b,), generator=gen, device="cuda")
+        batch = {"images": torch.randn((b, *TRANSFORMER_HW, 3),
+                                       generator=gen, device="cuda"),
+                 "labels": labels.to(torch.int32)}
+        if backbone == "vit":
+            batch["cams"] = torch.randint(0, N_CAMS, (b,), generator=gen,
+                                          device="cuda")
+        batches.append(batch)
+    for i in range(PLR_WARM):
+        state, m = step(state, batches[i % 4])
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(PLR_STEPS + 1)]
+    events[0].record()
+    losses = []
+    for i in range(PLR_STEPS):
+        state, m = step(state, batches[i % 4])
+        events[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)), losses
+    assert all(bool(torch.isfinite(p).all()) for p in state.params())
+    med = statistics.median(ms)
+    kind = "adam" if instances == 0 else "sgd"
+    res = dict(optimizer=kind, batch=b, classes=N_CLASSES,
+               hw=list(TRANSFORMER_HW), cams=backbone == "vit",
+               steps=PLR_STEPS, step_ms_median=med, step_ms_min=min(ms),
+               step_ms_max=max(ms), images_per_s=b * 1e3 / med,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               losses=losses)
+    prof = step_profile(state, cfg, batches, reps=1, step=step,
+                        name=f"train_step_{backbone}_{kind}")
+    res.update(prof, device_idle_share=1 - prof["device_ms_per_step"] / med)
+    emit(f"train {backbone} {kind}", **res)
+    del state, batches
+    torch.cuda.empty_cache()
+    return res
+
+
 def set_launches(rows, sites):
     """Each K1/K2 row's launches at its call site in one run of its path."""
     for row in rows:
@@ -2987,9 +3160,18 @@ def main():
     # phases 25-26: OSNet and PLR-OSNet, no K1 or K2 on their int8 route
     for backbone in OSNET_BACKBONES:
         with tempfile.TemporaryDirectory() as tmp:
-            phase_track_zoo(tmp, 64, 32, backbone, k1=False)
+            phase_track_zoo(tmp, ZOO_TRACK_FRAMES, 32, backbone, k1=False)
     phase_zoo_embed(OSNET_BACKBONES, {b: 0 for b in OSNET_BACKBONES},
                     "embed osnet", int8_cosine=0.99)
+    # phases 29-30: ViT and Swin at 448x224, no K1 or K2 on their int8
+    # route
+    for backbone, modes in TRANSFORMER_TRACK.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_track_zoo(tmp, ZOO_TRACK_FRAMES, 32, backbone, k1=False,
+                            crop_hw=TRANSFORMER_HW, modes=modes)
+    phase_zoo_embed(tuple(TRANSFORMER_WIDTH),
+                    {b: 0 for b in TRANSFORMER_WIDTH}, "embed transformers",
+                    int8_cosine=0.99, hw=TRANSFORMER_HW)
     # K1/K2 launches at their call sites on the track path; K3-K5 (here and
     # in the probe's rows) and K1's probe rows: the probe path's launches
     track_rows = [r for r in rows if r["path"] == "track"]
@@ -3056,6 +3238,20 @@ def main():
     rows += plr_rows
     del keep_p, query, gallery
     torch.cuda.empty_cache()
+    # phase 31: vit f32 on phase 6's split at 448x224 (D = 1,135)
+    query, gallery, make_v = market_splits_at(TRANSFORMER_HW)
+    keep_v, counts_v, _ = phase_retrieval(query, gallery, make_v,
+                                          backbone="vit")
+    keep_v.update(query_cams=query.cams, gallery_cams=gallery.cams)
+    vit_rows = phase_distance_kernels(kind, keep_v, suffix=" vit",
+                                      path="retrieval vit", full=False)
+    for row in vit_rows:
+        row["launches"] = counts_v.get(row["name"].split()[0], 0)
+        assert row["launches"] > 0, row
+    assert vit_rows[0]["site"][2] == 384 + N_CLASSES, vit_rows[0]
+    rows += vit_rows
+    del keep_v, query, gallery
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         state, cfg, source, trained, batches = phase_train(tmp)
         phase_train_card_vs_cpu()
@@ -3079,6 +3275,9 @@ def main():
         torch.cuda.empty_cache()
         phase_train_card_vs_cpu("osnet", spread=True)
         phase_train_card_vs_cpu("plr_osnet", spread=True)
+        # phase 32's card-vs-CPU steps, before any trace
+        for backbone in TRANSFORMER_STEP:
+            phase_train_card_vs_cpu(backbone, spread=True)
         # traced last: a trace slows the process's later launches
         emit("train step profile", **step_profile(trained, cfg, batches))
         del trained, batches
@@ -3094,6 +3293,10 @@ def main():
         del ca_state, ca_batches
         for instances in (0, 4):
             phase_train_plr(instances)
+        # phase 32: the transformer step on both optimizer branches
+        for backbone in TRANSFORMER_STEP:
+            for instances in (4, 0):
+                phase_train_transformer(backbone, instances)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6/K7 on the continual run: its launches, and each held against its

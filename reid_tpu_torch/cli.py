@@ -8,11 +8,13 @@ runs the same program on the CPU with the kernels' plain versions.
   * `track_main`: a frame directory, video file or webcam index in ->
     detections (a MOT det file with `--detections`, else the built-in
     detector: CenterNetLite, or YOLOv5 with `--detector yolov5`, its trunk
-    in int8 under `--int8`) -> the `--backbone` embed (seres18, cares18,
-    emares18, baseline, resnet50 or agw; bf16, or int8 with `--int8`),
-    whose width the tracker takes from a probe forward -> tracker -> MOT
-    txt [+ annotated frames with `--save_vid`] [+ CLEAR/Identity/HOTA
-    against `--gt`].
+    in int8 under `--int8`) -> the `--backbone` embed (bf16, or int8 with
+    `--int8`), whose width the tracker takes from a probe forward ->
+    tracker -> MOT txt [+ annotated frames with `--save_vid`] [+
+    CLEAR/Identity/HOTA against `--gt`]. The transformers embed crops of
+    `--crop_hw`: ViT's position table is built for that size, and Swin
+    needs a grid that halves three times into whole 7x7 windows (448 224
+    or 224 224).
     Camera-motion compensation (botsort's default, `--gmc on|off`)
     estimates each chunk's affines on the device; the step path (`--chunk
     1`, and every run with a built-in detector or `--save_vid`) estimates
@@ -27,7 +29,9 @@ runs the same program on the CPU with the kernels' plain versions.
     its place, where the JAX package reads StableHLO. `--search_option
     ivf` ranks through the IVF index, `--attributes_mat` adds the Market
     attribute prior. The classifier's width is read from `--ckpt`. The
-    port's retrieval runs on one device.
+    transformers embed at 448x224 (Market, Duke) or 224x224 (VeRi), as
+    the JAX package's `_base_cfg` sizes them. The port's retrieval runs on
+    one device.
   * `train_main`: a `--backbone` on a Market-style train split (PK
     batches, device augmentation, the hybrid loss, Adam + center SGD, DCC
     tables, `--xbm`), the `.npz` checkpoint
@@ -40,11 +44,17 @@ runs the same program on the CPU with the kernels' plain versions.
     checkpoint into plain BatchNorm, as the JAX package does. OSNet
     trains through the same loop; `--backbone plr_osnet` is refused (its
     dual-branch loop is the library `train/plr_train.py`, which the JAX
-    package's `train_main` never reaches either).
+    package's `train_main` never reaches either), and so are vit,
+    swin_v1 and swin_v2: the JAX package's `train_main` fails on them
+    (ViT's 384-wide feature meets loss tables sized by feat_dim = 512;
+    Swin's step passes cams to a model initialised without its SIE
+    table). Their step is the library (`train.state.make_optimizers`,
+    `train.steps.make_train_step` with feat_dim at the model's width).
 
 `--backbone` takes the names `models.build_model` has (seres18, cares18,
 emares18, baseline, resnet50, agw, osnet, osnet_x1_0, osnet_x0_5,
-osnet_x0_25, plr_osnet); the others raise KeyError.
+osnet_x0_25, plr_osnet, vit, swin_v1, swin_v2); the others (the video
+models) raise KeyError.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
@@ -118,7 +128,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="appearance cadence: embed crops only on every "
                         "k-th frame; --chunk needs chunk %% k == 0")
     p.add_argument("--crop_hw", type=int, nargs=2, default=(256, 128),
-                   metavar=("H", "W"))
+                   metavar=("H", "W"),
+                   help="ReID crop size; the transformers want their "
+                        "grid: 448 224 or 224 224 (swin's window 7 needs "
+                        "the grid to halve three times)")
     p.add_argument("--max_frames", type=int, default=0,
                    help="stop after N frames (0 = all)")
     p.add_argument("--chunk", type=int, default=1,
@@ -164,6 +177,13 @@ def calibration_crops(source: str, crop_hw, device) -> torch.Tensor:
     return torch.from_numpy((np.stack(patches) - _MEAN) / _STD).to(device)
 
 
+# crops a transformer embeds in one forward: their activations at 448x224
+# outgrow the card at a chunk's 2,048 crops (Swin's stage-1 MLP alone is
+# 9.9 GB in bf16, ViT's int8 stem im2col 30 GB), so the track embed takes
+# them in slices of this many
+TRANSFORMER_EMBED_SLICE = 256
+
+
 def build_embed(backbone: str, num_classes: int, crop_hw, device,
                 ckpt: str = "", int8: bool = False, source: str = ""):
     """The serve-path embed: fn(crops (N,ch,cw,3)) -> L2-normalized
@@ -171,11 +191,15 @@ def build_embed(backbone: str, num_classes: int, crop_hw, device,
     (plr_osnet: 2,560), and the module it runs (the quantized copy under
     int8). The model computes in bf16, as the CLI's flax model does;
     without a checkpoint its weights are a random init from a generator
-    seeded 0."""
+    seeded 0. The transformers take the crops in slices of
+    TRANSFORMER_EMBED_SLICE (each row's embedding is its own; a slice's
+    GEMMs may round another way than the whole batch's)."""
     from .models import build_model
+    from .models.factory import TRANSFORMERS
 
     model = build_model(backbone, num_classes=num_classes,
-                        dtype=torch.bfloat16, device=device)
+                        dtype=torch.bfloat16, device=device,
+                        input_hw=tuple(crop_hw))
     if ckpt:
         from .utils.flax_bridge import load_flax_variables
         load_flax_variables(model, ckpt)
@@ -186,7 +210,7 @@ def build_embed(backbone: str, num_classes: int, crop_hw, device,
                                                     device)])
         net = quantized_model(model, qstate)
 
-    def embed_fn(crops):
+    def embed_one(crops):
         feat, logits = net(crops.to(torch.bfloat16))
         if isinstance(logits, tuple):
             # the reference's eval path emits the part feature only (ref
@@ -197,6 +221,13 @@ def build_embed(backbone: str, num_classes: int, crop_hw, device,
                            logits.to(torch.float32)], dim=1)
         return f / torch.clamp(torch.linalg.norm(f, dim=1, keepdim=True),
                                min=1e-12)
+
+    def embed_fn(crops):
+        if backbone in TRANSFORMERS and \
+                crops.shape[0] > TRANSFORMER_EMBED_SLICE:
+            return torch.cat([embed_one(c) for c in
+                              crops.split(TRANSFORMER_EMBED_SLICE)])
+        return embed_one(crops)
 
     return embed_fn, net
 
@@ -430,16 +461,28 @@ def _inference_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _input_hw(args):
+    """The input size of `reid_tpu/cli.py:_base_cfg`: 256x128 (VeRi
+    224x224), the transformers 448x224 (VeRi 224x224); `--height` /
+    `--width` override it."""
+    from .models.factory import TRANSFORMERS
+
+    sizes = {"market1501": (256, 128), "dukemtmc": (256, 128),
+             "veri": (224, 224)}
+    h, w = sizes.get(args.dataset, (256, 128))
+    if args.backbone in TRANSFORMERS:
+        h, w = (448, 224) if args.dataset in ("market1501", "dukemtmc") \
+            else (224, 224)
+    return args.height or h, args.width or w
+
+
 def _base_cfg(args, num_classes: int):
     """The retrieval run's configuration (`reid_tpu/cli.py:_base_cfg`,
     the fields inference reads)."""
     from .config import (Config, DataConfig, ModelConfig, RetrievalConfig,
                          TrainConfig)
 
-    sizes = {"market1501": (256, 128), "dukemtmc": (256, 128),
-             "veri": (224, 224)}
-    h, w = sizes.get(args.dataset, (256, 128))
-    h, w = args.height or h, args.width or w
+    h, w = _input_hw(args)
     n_cams = {"market1501": 6, "dukemtmc": 8, "veri": 20}.get(args.dataset, 6)
     return Config(
         model=ModelConfig(backbone=args.backbone, num_classes=num_classes,
@@ -511,7 +554,8 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
                 num_classes = head["kernel"].shape[1]
             model = build_model(cfg.model.backbone, num_classes=num_classes,
                                 num_cams=cfg.model.num_cams,
-                                dtype=torch.float32, device=device)
+                                dtype=torch.float32, device=device,
+                                input_hw=(cfg.data.height, cfg.data.width))
             if variables is not None:
                 load_flax_variables(model, variables)
         if args.int8:
@@ -574,19 +618,20 @@ def _train_cfg(args, num_classes: int):
     the CNN backbones)."""
     from .config import (Config, DataConfig, LossConfig, ModelConfig,
                          RetrievalConfig, TrainConfig)
+    from .models.factory import TRANSFORMERS
 
-    sizes = {"market1501": (256, 128), "dukemtmc": (256, 128),
-             "veri": (224, 224)}
-    h, w = sizes.get(args.dataset, (256, 128))
-    h, w = args.height or h, args.width or w
+    h, w = _input_hw(args)
     n_cams = {"market1501": 6, "dukemtmc": 8, "veri": 20}.get(args.dataset, 6)
     return Config(
         model=ModelConfig(backbone=args.backbone, num_classes=num_classes,
                           num_cams=n_cams, cam_factor=args.cam_factor,
                           renorm=args.renorm),
+        # the SIE XBM trainer gates at epoch > 10, the CNN one at > 25
         loss=LossConfig(margin=args.margin, center_lamda=args.center_lamda,
                         epsilon=args.epsilon, tao=args.temperature,
-                        xbm=args.xbm),
+                        xbm=args.xbm,
+                        xbm_start_epoch=10 if args.backbone in TRANSFORMERS
+                        else 25),
         train=TrainConfig(batch_size=args.bs, num_instances=args.instance,
                           epochs=args.epochs, seed=args.seed),
         data=DataConfig(dataset=args.dataset, root=args.root, height=h,
@@ -608,6 +653,16 @@ def train_main(argv=None, device: Optional[str] = "cuda",
                 "reid_tpu_torch.train.plr_train (create_plr_train_state, "
                 "make_plr_train_step); train_main does not run it, as the "
                 "JAX package's does not")
+    from .models.factory import TRANSFORMERS
+    if args.backbone in TRANSFORMERS:
+        # the JAX package's train_main fails on both (ROADMAP C)
+        p.error(f"--backbone {args.backbone}: the JAX package's train_main "
+                "cannot train it (ViT's 384-wide feature meets loss tables "
+                "sized by feat_dim = 512; Swin's step passes cams to a "
+                "model initialised without its SIE table), so neither "
+                "does this one; the transformer step is the library "
+                "(train.state.make_optimizers, train.steps.make_train_step "
+                "with cfg.model.feat_dim at the model's width)")
     if args.renorm:
         from .models.factory import supports_renorm
         if not supports_renorm(args.backbone):

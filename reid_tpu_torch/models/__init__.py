@@ -1,5 +1,6 @@
 """Models of the port: the SERes18-IBN family (SE, triplet and EMA block
-attention), the torchvision-style ResNets, OSNet and PLR-OSNet."""
+attention), the torchvision-style ResNets, OSNet and PLR-OSNet, ViT-t
+with SIE and Swin-T v1 / v2."""
 
 from .attention_modules import AttentionModule, MCALayer, PAMModule, SEModule
 from .baseline import BasicBlock, Bottleneck, NonLocalBlock, ResNetReID
@@ -7,9 +8,12 @@ from .ema_attention import EMAttention
 from .factory import build_model
 from .osnet import OSBlock, OSNet, PLROSNet
 from .seres18 import SEBasicBlock, SERes18IBN
+from .swin import SwinBlock, SwinTransformer, WindowAttention
 from .triplet_attention import TripletAttention
+from .vit import TransformerBlock, ViT
 
 __all__ = ["build_model", "AttentionModule", "BasicBlock", "Bottleneck",
            "EMAttention", "MCALayer", "NonLocalBlock", "OSBlock", "OSNet",
            "PAMModule", "PLROSNet", "ResNetReID", "SEBasicBlock",
-           "SEModule", "SERes18IBN", "TripletAttention"]
+           "SEModule", "SERes18IBN", "SwinBlock", "SwinTransformer",
+           "TransformerBlock", "TripletAttention", "ViT", "WindowAttention"]

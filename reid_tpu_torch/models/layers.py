@@ -2,13 +2,15 @@
 package.
 
 Counterparts of `reid_tpu/models/layers.py`: `InstanceNorm`, `IBN`,
-`LBN1D`, `SEBlock`, `GeM`, `AttentionPooling`, `MetaAconC1D`, BatchNorm
-or `BatchRenorm` through `make_norm2d` (train and eval mode),
+`LBN1D`, `SEBlock`, `GeM`, `GeM1D`, `AttentionPooling`, `MetaAconC1D`,
+BatchNorm or `BatchRenorm` through `make_norm2d` (train and eval mode),
 `BatchRenormNonIID`, `conv3x3` / `conv1x1` and `max_pool_same`; flax's
-`nn.LayerNorm` and `nn.GroupNorm`; and for the detectors flax's
-`nn.silu`, `nn.ConvTranspose(padding="SAME")` and the 2x nearest
-`jax.image.resize`. Activations are
-(N, H, W, C) at every public function, as in the flax modules; a conv
+`nn.LayerNorm` and `nn.GroupNorm`; for the detectors flax's `nn.silu`,
+`nn.ConvTranspose(padding="SAME")` and the 2x nearest `jax.image.resize`;
+for the transformers flax's `nn.gelu` (the tanh approximation),
+`nn.Dropout` with its masks drawn from a caller's `torch.Generator`, and
+the "SAME" padding of a strided conv. Activations are (N, H, W, C) at
+every public function, as in the flax modules; a conv
 permutes to PyTorch's NCHW view of the same memory (channels-last), so no
 copy is made. Each module computes at its `dtype` and keeps its parameters
 in f32, casting at the points flax does: convs and dense layers cast their
@@ -64,15 +66,22 @@ class Conv2d(nn.Conv2d):
     last rounding to `dtype` (XLA keeps the excess precision): the conv of
     the `dtype`-rounded input and kernel is returned in f32 without a
     bias, and with one the product is rounded to `dtype` and the bias
-    added in f32."""
+    added in f32.
+
+    `f32_sum`: on the CPU a `dtype` product is the f32 conv of the
+    rounded operands, rounded once, which sums in XLA's CPU order
+    (oneDNN's bf16 conv sums in another and moves a few outputs in 10^4
+    by an ulp); on the card the conv runs in `dtype` as it is."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype=torch.float32, bias: bool = False,
-                 keep_f32: bool = False, groups: int = 1):
+                 keep_f32: bool = False, groups: int = 1,
+                 f32_sum: bool = False):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
                          bias=bias, groups=groups)
         self.dtype = dtype
         self.keep_f32 = keep_f32
+        self.f32_sum = f32_sum
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None,
                          init: str = "kaiming"):
@@ -96,6 +105,10 @@ class Conv2d(nn.Conv2d):
                 y = F.conv2d(x.to(torch.float32), w.to(torch.float32),
                              stride=self.stride, padding=self.padding,
                              groups=g)
+        elif self.f32_sum and x.device.type == "cpu":
+            y = F.conv2d(x.to(torch.float32), w.to(torch.float32),
+                         stride=self.stride, padding=self.padding,
+                         groups=g).to(self.dtype)
         else:
             y = F.conv2d(x, w, stride=self.stride, padding=self.padding,
                          groups=g)
@@ -128,12 +141,14 @@ class ConvTranspose2d(nn.Module):
     so the weight here is flax's kernel (k, k, in, out) flipped in both
     spatial axes and laid out (in, out, k, k) (`utils/flax_bridge.py`
     does that), the call takes the smaller of the two paddings, and the
-    rows and columns that the other one adds are cropped."""
+    rows and columns that the other one adds are cropped. `f32_sum` as
+    `Conv2d`'s."""
 
     def __init__(self, cin: int, cout: int, k: int, s: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, f32_sum: bool = False):
         super().__init__()
         self.k, self.s, self.dtype = k, s, dtype
+        self.f32_sum = f32_sum
         self.weight = nn.Parameter(torch.empty(cin, cout, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
 
@@ -146,9 +161,13 @@ class ConvTranspose2d(nn.Module):
         pad_a, pad_b = conv_transpose_same_pads(self.k, self.s)
         crop_a, crop_b = self.k - 1 - pad_a, self.k - 1 - pad_b
         p = min(crop_a, crop_b)
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(self.dtype),
-                               self.weight.to(self.dtype), stride=self.s,
-                               padding=p)
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        w = self.weight.to(self.dtype)
+        if self.f32_sum and x.device.type == "cpu":
+            y = F.conv_transpose2d(x.to(torch.float32), w.to(torch.float32),
+                                   stride=self.s, padding=p).to(self.dtype)
+        else:
+            y = F.conv_transpose2d(x, w, stride=self.s, padding=p)
         h, w = y.shape[2], y.shape[3]
         y = y[:, :, crop_a - p:h - (crop_b - p), crop_a - p:w - (crop_b - p)]
         return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)
@@ -477,6 +496,69 @@ class GeM(nn.Module):
         return pooled.to(self.dtype)
 
 
+class GeM1D(GeM):
+    """GeM over a token axis: (N, L, C) -> (N, C)."""
+
+    def forward(self, x):
+        xf = torch.maximum(x.to(torch.float32),
+                           torch.full((), self.eps, device=x.device))
+        pooled = torch.mean(xf ** self.p, dim=1) ** (1.0 / self.p)
+        return pooled.to(self.dtype)
+
+
+def in_dtype(v: float, dtype) -> float:
+    """The python float `v` rounded to `dtype` (a constant of a formula
+    that JAX casts to the array's dtype before it multiplies)."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax `nn.gelu`, which is `jax.nn.gelu` with its default
+    approximate=True: x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3))) / 2,
+    not `F.gelu`'s erf default. Every step rounds to x's dtype and the
+    constants are rounded to it first, as the compiled JAX program does
+    in bf16 (`F.gelu(approximate="tanh")` rounds once)."""
+    dt = x.dtype
+    inner = x + in_dtype(0.044715, dt) * ((x * x) * x)
+    t = torch.tanh(in_dtype(float(np.sqrt(2 / np.pi)), dt) * inner)
+    return x * (0.5 * (1.0 + t))
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout(rate)` in train mode: each element kept with
+    probability 1 - rate and divided by it, the others 0. The mask is
+    drawn on x's device from `generator`, never from the global
+    generator, so a step is repeatable and reads nothing back to the
+    host. Rate 0 is the identity, as in flax, and needs no generator."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator on "
+                         "the input's device")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """The (before, after) zero padding of flax's padding="SAME" for a conv
+    of kernel k and stride s over `size` pixels: ceil(size / s) outputs,
+    the larger half after."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """NHWC `x` padded as a "SAME" k x k / s conv pads it (nothing where
+    s divides the size and k == s, as at the transformers' sizes)."""
+    (t, b), (l, r) = same_pads(x.shape[1], k, s), same_pads(x.shape[2], k, s)
+    if t == b == l == r == 0:
+        return x
+    return F.pad(x, (0, 0, l, r, t, b))
+
+
 def _fast_stats(xf: torch.Tensor, dims):
     """flax `_compute_stats` with its fast variance: mean and
     max(E[x^2] - mean^2, 0) over `dims`, kept as dims of size 1."""
@@ -488,11 +570,14 @@ def _fast_stats(xf: torch.Tensor, dims):
 
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm` over the last axis (eps 1e-6, fast variance),
-    f32 arithmetic, output in `dtype`."""
+    f32 arithmetic, output in `dtype`; with `keep_f32` in f32, for a
+    reader that converts it to f32 itself (a norm or a pooling), where the
+    compiled JAX program skips the rounding to `dtype`."""
 
-    def __init__(self, c: int, eps: float = 1e-6, dtype=torch.float32):
+    def __init__(self, c: int, eps: float = 1e-6, dtype=torch.float32,
+                 keep_f32: bool = False):
         super().__init__()
-        self.eps, self.dtype = eps, dtype
+        self.eps, self.dtype, self.keep_f32 = eps, dtype, keep_f32
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
@@ -500,7 +585,8 @@ class LayerNorm(nn.Module):
         xf = x.to(torch.float32)
         mean, var = _fast_stats(xf, (-1,))
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).to(self.dtype)
+        y = y + self.bias
+        return y if self.keep_f32 else y.to(self.dtype)
 
 
 class GroupNorm1(nn.Module):

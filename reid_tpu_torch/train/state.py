@@ -1,17 +1,18 @@
 """Train state: the model, the loss state, both optimizers and the step.
 
-Counterpart of `reid_tpu/train/state.py` for the CNN and PLR-OSNet
-branches of `make_optimizers` (ref image_reid_train.py:49-56, :87,
-:92-95, :196-201). The model optimizer is optax's chain written out as
-explicit updates on tensors:
+Counterpart of `reid_tpu/train/state.py` for every branch of
+`make_optimizers`: the CNN loops', PLR-OSNet's and the transformers' (ref
+image_reid_train.py:49-56, :87, :92-95, :196-201, :271-277). The model
+optimizer is optax's chain written out as explicit updates on tensors:
 `clip_by_global_norm(grad_clip)` (g * max / |g| only where |g| > max, the
 norm without an epsilon; `clip_grad_norm_` adds 1e-6 and is not used) ->
 `add_decayed_weights(weight_decay)` (L2 into the gradient, on every
 parameter, norm scales included) -> Adam (eps 1e-8 outside the root,
-bias correction at the incremented count) under PK sampling, else SGD
-with Nesterov momentum 0.9; the lr is the schedule at the count before
-the increment. PLR-OSNet without PK sampling takes MADGRAD inside the
-same clip (`train/optim.py`). The centers take `scale(1 / lamda)` ->
+bias correction at the incremented count), SGD with Nesterov momentum
+0.9, or plain SGD without momentum (the transformers under PK
+sampling); the lr is the schedule at the count before the increment.
+PLR-OSNet without PK sampling takes MADGRAD inside the same clip
+(`train/optim.py`). The centers take `scale(1 / lamda)` ->
 `sgd(center_lr)`.
 Updates run in place on the parameters and moments with `torch._foreach`
 ops (a handful of multi-tensor launches a step) and read nothing back to
@@ -28,6 +29,7 @@ import torch
 
 from ..config import Config
 from ..losses import HybridLossState, XBMState, init_hybrid_state, init_xbm
+from ..models.factory import TRANSFORMERS
 from .optim import Madgrad, clip_by_global_norm
 from .schedules import Schedule, warmup_cosine_schedule
 
@@ -36,20 +38,25 @@ _MOMENTUM = 0.9                        # the SGD branch (ref :55)
 
 
 class ModelOptimizer:
-    """optax.chain(clip_by_global_norm, add_decayed_weights, adam | sgd
-    with Nesterov momentum) over a list of parameters."""
+    """optax.chain(clip_by_global_norm, add_decayed_weights, adam | sgd)
+    over a list of parameters; the SGD has Nesterov momentum 0.9, or
+    none with `momentum=False` (optax.sgd(schedule): no trace, the
+    update is -lr g)."""
 
     def __init__(self, schedule: Schedule, weight_decay: float,
-                 grad_clip: float, adam: bool):
+                 grad_clip: float, adam: bool, momentum: bool = True):
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.adam = adam
+        self.momentum = momentum
 
     def init(self, params: List[torch.Tensor]) -> dict:
         zeros = lambda: [torch.zeros_like(p) for p in params]   # noqa: E731
         if self.adam:
             return {"count": 0, "mu": zeros(), "nu": zeros()}
+        if not self.momentum:
+            return {"count": 0}
         return {"count": 0, "trace": zeros()}
 
     @torch.no_grad()
@@ -74,6 +81,8 @@ class ModelOptimizer:
             torch._foreach_add_(denom, _EPS)
             upd = torch._foreach_div(mu, bc1)
             torch._foreach_div_(upd, denom)
+        elif not self.momentum:
+            upd = g
         else:
             trace = state["trace"]
             torch._foreach_mul_(trace, _MOMENTUM)
@@ -105,17 +114,22 @@ def make_optimizers(cfg: Config, steps_per_epoch: int):
     * PLR-OSNet's loop (ref :196-201): Adam as above under PK sampling,
       else MADGRAD under its own WarmUpCosine from 0.01, weight decay
       5e-4, momentum 0.9;
+    * the transformer loop (ref :271-277), the branch inverted: plain SGD
+      without momentum from 0.008 under PK sampling, else Adam from 0.01,
+      weight decay 1e-4 either way;
 
     each inside the global-norm clip; centers SGD(center_lr) after the
-    1/lamda rescale (ref :310-312). The transformer branch comes with its
-    models."""
+    1/lamda rescale (ref :310-312)."""
     backbone = cfg.model.backbone
-    if backbone in ("vit", "swin_v1", "swin_v2"):
-        raise NotImplementedError(
-            f"the optimizer of '{backbone}' is not ported: the port trains "
-            "the CNN branch and PLR-OSNet's")
     t = cfg.train
     center_tx = CenterSGD(cfg.loss.center_lamda, t.center_lr)
+    if backbone in TRANSFORMERS:
+        pk = t.num_instances > 0
+        schedule = warmup_cosine_schedule(0.008 if pk else 0.01, t.epochs,
+                                          steps_per_epoch, t.warmup_epochs,
+                                          t.hold_epochs, t.eta_min)
+        return ModelOptimizer(schedule, 1e-4, t.grad_clip, adam=not pk,
+                              momentum=False), center_tx
     if backbone == "plr_osnet" and t.num_instances <= 0:
         schedule = warmup_cosine_schedule(0.01, t.epochs, steps_per_epoch,
                                           t.warmup_epochs, t.hold_epochs,

@@ -18,6 +18,7 @@ from ..config import Config
 from ..data.transforms import augment_apply, augment_draws
 from ..losses import (hybrid_loss, update_dcc_luts, xbm_enqueue,
                       xbm_triplet_loss)
+from ..models.factory import TRANSFORMERS
 from .state import ReIDTrainState
 
 
@@ -26,20 +27,28 @@ def make_train_step(cfg: Config, use_xbm_gate: bool = False,
     """train_step(state, batch) -> (state, metrics), updating `state` in
     place. In order: the augmentation of uint8 images (draws from
     `generator`, or the batch's own "aug_draws"); the train-mode forward,
-    which updates the BatchNorm statistics; the f32 hybrid loss, plus the
-    XBM triplet while "xbm_active" under `use_xbm_gate`; gradients for the
-    parameters and the centers; the clipped model update and the rescaled
-    center update; the DCC tables from the logits; the XBM enqueue.
+    which updates the BatchNorm statistics (a transformer's dropout masks
+    drawn from `generator` too, on the device; a dropout rate of 0 needs
+    none); the f32 hybrid loss, plus the XBM triplet while "xbm_active"
+    under `use_xbm_gate`; gradients for the parameters and the centers;
+    the clipped model update and the rescaled center update; the DCC
+    tables from the logits; the XBM enqueue.
 
     batch: images (B, H, W, 3) uint8 or normalized float, labels (B,),
-    cams (B,) and weights (B,) optional, xbm_active a bool (default
-    True). Nothing is read back to the host: metrics are device scalars.
+    cams (B,) and weights (B,) optional (the cams feed the camera bias
+    under `cam_factor` > 0 and the transformers' SIE table), xbm_active a
+    bool (default True). Nothing is read back to the host: metrics are
+    device scalars.
     Under PK sampling with K dividing B, each class has exactly K
     instances in a batch, which bounds the DCC table's rounds without a
-    host read."""
+    host read; without PK sampling the bound is B (the rounds past a
+    batch's largest class write only the table's spare row), as in
+    `plr_train`."""
     k = cfg.train.num_instances
     rounds = k if k > 0 and cfg.train.batch_size % k == 0 else None
-    use_cam = cfg.model.cam_factor > 0
+    transformer = cfg.model.backbone in TRANSFORMERS
+    use_cam = cfg.model.cam_factor > 0 or transformer
+    drop = {"rng": generator} if transformer else {}
 
     def train_step(state: ReIDTrainState, batch: dict):
         images, labels = batch["images"], batch["labels"]
@@ -53,7 +62,8 @@ def make_train_step(cfg: Config, use_xbm_gate: bool = False,
                                    flip_prob=cfg.data.flip_prob,
                                    erase_prob=cfg.data.random_erasing_prob)
         feature, logits = state.model(
-            images, batch.get("cams") if use_cam else None, train=True)
+            images, batch.get("cams") if use_cam else None, train=True,
+            **drop)
         feature = feature.to(torch.float32)
         logits = logits.to(torch.float32)
         centers = state.loss_state.centers.detach().requires_grad_()
@@ -75,7 +85,7 @@ def make_train_step(cfg: Config, use_xbm_gate: bool = False,
         if cfg.loss.use_dcc:
             dcc = update_dcc_luts(dcc, logits, labels,
                                   momentum=cfg.loss.dcc_momentum,
-                                  rounds=rounds)
+                                  rounds=rounds or labels.shape[0])
         state.loss_state = state.loss_state._replace(centers=new_centers,
                                                      dcc=dcc)
         if use_xbm_gate and state.xbm is not None:

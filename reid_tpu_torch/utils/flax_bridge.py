@@ -23,7 +23,17 @@ moments and count, XBM ring; PLR-OSNet's two branches' tables), so that
 both packages can resume from one point. OSNet's depthwise kernels
 (kh, kw, 1, C) become (C, 1, kh, kw) by the same transpose, a 1-D conv's
 kernel (k, in, out) becomes (out, in, k), and PAM's `gamma` keeps its
-name.
+name. The transformers' attention (`models/vit.py:HeadDense`, flax's
+`DenseGeneral`s "query", "key", "value" and "out" of
+`MultiHeadDotProductAttention`) has 3-D kernels that a transpose would
+scramble: (in, heads, head_dim) becomes (heads * head_dim, in) and
+(heads, head_dim, out) becomes (out, heads * head_dim), a (heads,
+head_dim) bias becomes flat, and the way back restores those shapes. The
+cls token, the position tables (ViT's (1, L + 1, D), Swin v1's
+(2ws - 1, 2ws - 1)), v2's `logit_scale` and the SIE tables keep their
+names and shapes. Swin's SIE table exists in a flax tree only where
+`init` saw a cam: loading a tree with or without it gives the model
+that table or takes it away.
 """
 
 from __future__ import annotations
@@ -78,6 +88,30 @@ def kernel_to_torch(k: np.ndarray) -> np.ndarray:
     return k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
 
 
+# the DenseGenerals of flax's MultiHeadDotProductAttention, by name
+_HEADS_IN = ("query", "key", "value")
+_HEADS_OUT = "out"
+
+
+def head_kernel_to_torch(name: str, k: np.ndarray) -> np.ndarray:
+    """An attention projection's 3-D kernel -> its (out, in) weight:
+    (in, heads, head_dim) for "query" / "key" / "value", (heads,
+    head_dim, out) for "out"."""
+    k = np.asarray(k)
+    if name == _HEADS_OUT:
+        return np.ascontiguousarray(k.reshape(-1, k.shape[-1]).T)
+    return np.ascontiguousarray(k.reshape(k.shape[0], -1).T)
+
+
+def _is_head_leaf(mods, arr, leaf) -> bool:
+    """A kernel (3-D) or bias (2-D) of an attention projection."""
+    if not mods or leaf not in ("kernel", "bias"):
+        return False
+    if mods[-1] in _HEADS_IN:
+        return arr.ndim == (3 if leaf == "kernel" else 2)
+    return mods[-1] == _HEADS_OUT and leaf == "kernel" and arr.ndim == 3
+
+
 def transposed_kernel_to_torch(k: np.ndarray) -> np.ndarray:
     """flax ConvTranspose kernel (kh, kw, in, out), transpose_kernel=False
     -> the (in, out, kh, kw) weight of `conv_transpose2d`, flipped."""
@@ -96,7 +130,10 @@ def torch_state_dict(variables: Mapping, transposed: Iterable[str] = ()
             *mods, leaf = path
             # BatchRenorm's step counter stays an integer
             arr = np.asarray(v, np.int32 if leaf == "steps" else np.float32)
-            if leaf == "kernel":
+            if _is_head_leaf(mods, arr, leaf):
+                arr = head_kernel_to_torch(mods[-1], arr) \
+                    if leaf == "kernel" else arr.reshape(-1)
+            elif leaf == "kernel":
                 arr = (transposed_kernel_to_torch(arr)
                        if ".".join(mods) in transposed
                        else kernel_to_torch(arr))
@@ -116,6 +153,7 @@ def load_flax_variables(model: torch.nn.Module, variables) -> None:
 
     if isinstance(variables, str):
         variables = load_npz(variables)
+    _adopt_sie_table(model, variables)
     transposed = [n for n, m in model.named_modules()
                   if isinstance(m, ConvTranspose2d)]
     sd = torch_state_dict(variables, transposed)
@@ -123,6 +161,22 @@ def load_flax_variables(model: torch.nn.Module, variables) -> None:
     sd = {k: v for k, v in sd.items()
           if k in own or not k.endswith(".steps")}
     model.load_state_dict(sd, strict=True)
+
+
+def _adopt_sie_table(model: torch.nn.Module, variables) -> None:
+    """Give a Swin the SIE table that the tree has, or take away the one
+    the tree lacks (flax's tree has it only where `init` saw a cam)."""
+    from ..models.swin import SwinTransformer
+
+    if not isinstance(model, SwinTransformer):
+        return
+    table = variables.get("params", {}).get("side_info_embedding")
+    if table is None:
+        model.side_info_embedding = None
+    elif model.side_info_embedding is None:
+        dev = next(model.parameters()).device
+        model.side_info_embedding = torch.nn.Parameter(
+            torch.zeros(np.shape(table), device=dev))
 
 
 def quant_state_from_flax(qstate, device="cuda") -> QuantState:
@@ -150,6 +204,7 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
     f32 numpy arrays in flax naming and layout: the inverse of
     `torch_state_dict`, so `load_flax_variables` reads it back."""
     from ..models.layers import ConvTranspose2d
+    from ..models.vit import HeadDense
 
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
@@ -167,7 +222,9 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
         for name, t in m.named_parameters(recurse=False):
             arr = t.detach().to("cpu", torch.float32).numpy()
             leaf = name
-            if name == "weight":
+            if isinstance(m, HeadDense):
+                arr, leaf = _head_from_torch(m, name, arr)
+            elif name == "weight":
                 if isinstance(m, ConvTranspose2d):
                     arr, leaf = arr.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
                 elif is_conv:
@@ -176,11 +233,23 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
                     leaf = "scale"
             put(params, path, leaf, np.array(arr))
         for name, t in m.named_buffers(recurse=False):
+            if name in m._non_persistent_buffers_set:
+                continue        # constants (Swin's masks and offsets)
             leaf = {"running_mean": "mean", "running_var": "var",
                     "steps": "steps"}[name]
             dtype = torch.int32 if name == "steps" else torch.float32
             put(stats, path, leaf, t.detach().to("cpu", dtype).numpy())
     return {"params": params, "batch_stats": stats}
+
+
+def _head_from_torch(m, name: str, arr: np.ndarray):
+    """A `HeadDense` parameter back in flax's DenseGeneral shape."""
+    h, hd = m.heads, m.head_dim
+    if name == "bias":
+        return (arr.reshape(h, hd) if m.to_heads else arr), "bias"
+    if m.to_heads:
+        return arr.T.reshape(-1, h, hd), "kernel"
+    return arr.T.reshape(h, hd, -1), "kernel"
 
 
 def _named_tree(tree, names, device) -> list:
@@ -215,8 +284,10 @@ def _opt_state_from_flax(tx, opt_state, names, device) -> dict:
         return {"count": int(np.asarray(a.count)),
                 "mu": _named_tree(a.mu, names, device),
                 "nu": _named_tree(a.nu, names, device)}
-    (tr,) = _find_states(opt_state, ("trace",))
     (sched,) = _find_states(opt_state, ("count",))
+    if not tx.momentum:
+        return {"count": int(np.asarray(sched.count))}
+    (tr,) = _find_states(opt_state, ("trace",))
     return {"count": int(np.asarray(sched.count)),
             "trace": _named_tree(tr.trace, names, device)}
 
@@ -251,7 +322,8 @@ def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
                         num_cams=np.shape(params["cam_bias"])[0]
                         if "cam_bias" in params else cfg.model.num_cams,
                         dtype=getattr(torch, cfg.model.dtype), device=device,
-                        renorm=cfg.model.renorm)
+                        renorm=cfg.model.renorm,
+                        input_hw=(cfg.data.height, cfg.data.width))
     load_flax_variables(model, variables)
     names = [n for n, _ in model.named_parameters()]
     tx, center_tx = make_optimizers(cfg, steps_per_epoch)

@@ -230,8 +230,7 @@ def test_fresh_non_local_block_is_identity():
 
 
 def test_unported_backbones_raise_key_error():
-    for name in ("vit", "swin_v1", "swin_v2", "video_resnet50",
-                 "video_resnet18"):
+    for name in ("video_resnet50", "video_resnet18"):
         with pytest.raises(KeyError, match="agw"):
             build_model(name, num_classes=4, device="cpu")
 

@@ -59,6 +59,14 @@ Tolerances:
   * PLR-OSNet's train step (MADGRAD without PK sampling, and Adam with
     it), after two warm-up steps, under the sync debug mode "error", with
     finite losses and parameters.
+  * ViT and Swin (reduced widths): the bf16 embed, card against CPU,
+    cosine >= 0.999 a row; the int8 embed, card against CPU with one
+    QuantState, cosine >= 0.999, and neither K1 nor K2 launched (no conv
+    of theirs is 3x3 with 128-multiple channels); the transformer train
+    step (dropout 0.1, masks drawn on the card; ViT with cams) on both
+    optimizer branches after two warm-up steps under the sync debug mode
+    "error", and one generator
+    seed giving the same step twice.
 """
 
 import numpy as np
@@ -806,3 +814,90 @@ def test_plr_train_step_on_card_makes_no_host_sync(cuda, instances):
     assert state.step == 3
     assert all(bool(torch.isfinite(v)) for v in m.values())
     assert all(bool(torch.isfinite(p).all()) for p in state.params())
+
+
+TRANSFORMER_KW = {
+    "vit": (dict(dim=64, depth=2, heads=4, mlp_dim=128), (128, 64)),
+    "swin_v2": (dict(hidden_dim=16, layers=(2, 2, 2, 2), heads=(1, 2, 2, 4),
+                     head_dim=8, window_size=2), (64, 64)),
+}
+
+
+@pytest.mark.parametrize("name", list(TRANSFORMER_KW))
+def test_transformer_embeds_on_card_match_cpu(cuda, name):
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils import quantize as tqz
+
+    kw, hw = TRANSFORMER_KW[name]
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(8, *hw, 3)).astype(np.float32)).to(torch.bfloat16)
+    cpu = build_model(name, num_classes=16, dtype=torch.bfloat16,
+                      device="cpu", input_hw=hw, **kw)
+    card = build_model(name, num_classes=16, dtype=torch.bfloat16,
+                       device=cuda, input_hw=hw, **kw)
+    card.load_state_dict(cpu.state_dict())
+    qs = tqz.quantize(cpu, [x])
+    q_cpu = tqz.quantized_model(cpu, qs)
+    q_card = tqz.quantized_model(card, tqz.QuantState(
+        {k: v.to(cuda) for k, v in qs.kernels.items()},
+        {k: v.to(cuda) for k, v in qs.w_scales.items()}, qs.act_scales))
+    reset_launch_counts()
+    with torch.no_grad():
+        for m_c, m_g in ((cpu, card), (q_cpu, q_card)):
+            e_c = torch.cat(m_c(x), 1).float()
+            e_g = torch.cat(m_g(x.to(cuda)), 1).float().cpu()
+            cos = torch.nn.functional.cosine_similarity(e_c, e_g, dim=1)
+            assert cos.min() >= 0.999, cos
+    assert launch_counts().get(tq.NAME, 0) == 0
+    assert launch_counts().get(tqb.NAME, 0) == 0
+
+
+def _transformer_step(cuda, seed, instances=4):
+    from reid_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.train.state import create_train_state
+    from reid_tpu_torch.train.steps import make_train_step
+
+    kw, hw = TRANSFORMER_KW["vit"]
+    cfg = Config(model=ModelConfig(backbone="vit", num_classes=8,
+                                   feat_dim=64),
+                 train=TrainConfig(batch_size=16, num_instances=instances))
+    model = build_model("vit", num_classes=8, dtype=torch.bfloat16,
+                        device=cuda, input_hw=hw, **kw)
+    state = create_train_state(model, cfg, 10,
+                               torch.Generator().manual_seed(0))
+    step = make_train_step(cfg, generator=torch.Generator(cuda)
+                           .manual_seed(seed))
+    gen = torch.Generator(cuda).manual_seed(1)
+    batch = {"images": torch.randn((16, *hw, 3), generator=gen,
+                                   device=cuda),
+             "labels": torch.arange(16, device=cuda) // 4,
+             "cams": torch.arange(16, device=cuda) % 6}
+    return state, step, batch
+
+
+@pytest.mark.parametrize("instances", [4, 0])
+def test_transformer_train_step_on_card_makes_no_host_sync(cuda, instances):
+    """Plain SGD under PK sampling and Adam without it (the DCC table's
+    rounds bounded by the batch, not read from the labels)."""
+    state, step, batch = _transformer_step(cuda, 0, instances)
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 3 and np.isfinite(float(m["loss"]))
+    assert all(bool(torch.isfinite(p).all()) for p in state.params())
+
+
+def test_transformer_train_step_on_card_repeats(cuda):
+    out = []
+    for seed in (0, 0, 1):
+        state, step, batch = _transformer_step(cuda, seed)
+        step(state, batch)
+        out.append(torch.cat([p.detach().ravel() for p in state.params()]))
+    assert torch.equal(out[0], out[1])
+    assert not torch.equal(out[0], out[2])
