@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 19 min of command
+    python3 chip_smoke.py             # on one card, about 13 min of command
     python3 chip_smoke.py --profile   # the same, tracing the track runs,
                                       # a chunk of each stream operating
                                       # point and the retrieval run
@@ -125,7 +125,8 @@ Phases, one JSON line each:
               CPU (plain kernel versions), cosine of [feat || logits];
   6. retrieval `reid_tpu_torch.cli.inference` (the body of
               `inference_main`) on an in-memory synthetic split of
-              Market-1501's size: 3,368 queries and 19,732 gallery images
+              Market-1501's size drawn on the card (`market_splits`):
+              3,368 queries and 19,732 gallery images
               of 256x128, 750 ids, 6 cameras; SERes18 in f32 with 751
               classes (D = 1,263) and random weights (seed 0); --bs 64,
               TTA flip, camera de-bias, k1 = 20, k2 = 6, eps 0.55,
@@ -200,7 +201,9 @@ Phases, one JSON line each:
               (16,522 images of 702 ids at 256x128, on disk) with the
               dense search plan, so K6 ranks and K7 sums (the "auto" plan
               takes the top-S min-sum above 15,000 rows), then
-              `train_continual` for one epoch of the merged split: the
+              `train_continual` for one epoch over every fourth record
+              of the merged split (CONTINUAL_EVERY, a cut for the
+              clock): the
               clusters, the Jaccard's seconds, peak memory, and the K6/K7
               launches zeroed just before and read just after
               (`launches_continual_run` in their rows); last, five train
@@ -286,8 +289,8 @@ ViT-t with SIE and Swin-T v1 / v2 at 448x224, in the same run:
               embed against its f32 embed on the card (cosine >= 0.99, no
               K1 or K2 launch), as phase 26;
  31. retrieval `--backbone vit` in f32 on a split of phase 6's sizes, ids
-              and cameras at 448x224 (`market_splits_at`, drawn on the
-              card; D = 1,135): seconds, CMC/mAP, peak memory, launches;
+              and cameras at 448x224 (`market_splits`; D = 1,135):
+              seconds, CMC/mAP, peak memory, launches;
               K6 at D = 1,135 and K7 held against their plain versions on
               that run's operands and timed, as phase 19;
  32. train    the transformer step (`make_train_step`, the library the
@@ -299,7 +302,24 @@ ViT-t with SIE and Swin-T v1 / v2 at 448x224, in the same run:
               launches, device time, idle share and the sync check
               (`phase_train_transformer`); before it, phase 14's
               card-vs-CPU f32 step of each at a batch of 8 with dropout 0,
-              the limits as phase 28's (`spread`).
+              the limits as phase 28's (`spread`);
+ 33. video    `cli.video_main` at its defaults (bs 8, seq_len 10,
+              256x128, bf16, the 3-D video_resnet50) for one epoch of 8
+              steps on a synthetic MOT16-shaped tree of two sequences of
+              1080p JPEG frames with 64 pedestrian tracks and a distractor
+              (`write_mot_tree`): the step period on the device's clock,
+              the loader's seconds a step (whole-frame JPEG decode, as the
+              reference's loader), peak memory, finite losses; then the
+              step alone on a kept batch (median of 10 after 3), the sync
+              check, launches, device time and idle share a step, and
+              its FLOP rate (`phase_video_train`);
+ 34. video    one f32 video step (MADGRAD without a clip) card against
+              CPU on VideoResNet(blocks=(1, 1, 1, 1)) at 2 x 4 x 64 x 32,
+              under phase 14's limits or twice the CPU's own spread, and
+              the bf16 eval forward of video_resnet50 on 2 clips of 10 x
+              256 x 128, card against CPU, cosine >= 0.999 a row
+              (`phase_video_card_vs_cpu`). No kernel of K1-K7 lies on the
+              video path (3-D convs, no --int8).
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -756,25 +776,39 @@ def write_scene(root, n_frames, n_real=50, hw=(1080, 1920), seed=0,
     return fdir, det
 
 
+def device_kernels(prof):
+    """[name, launches, device ms] of each kernel (and copy) a finished
+    torch.profiler trace holds on the card, by device time: read from the
+    trace's raw events, since `key_averages()` builds an event object for
+    every record (~0.2 ms each, tens of seconds on a traced train step)."""
+    import torch
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        t = totals.setdefault(e.name(), [0, 0.0])
+        t[0] += 1
+        t[1] += (e.end_ns() - e.start_ns()) / 1e6
+    return sorted(([k, n, ms] for k, (n, ms) in totals.items()),
+                  key=lambda r: -r[2])
+
+
 def profiled(fn, path):
     """fn() under torch.profiler; the device kernels by total time go to
     `path`, and their summed time is returned in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(ms for _, _, ms in kernels)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(path, "w") as f:
         f.write(f"device kernel time {busy_ms:.3f} ms\n")
-        for e in kernels:
-            f.write(f"{e.self_device_time_total / 1e3:10.3f} ms "
-                    f"{e.count:7d}x  {e.key[:150]}\n")
+        for name, n, ms in kernels:
+            f.write(f"{ms:10.3f} ms {n:7d}x  {name[:150]}\n")
     return out, busy_ms
 
 
@@ -1107,29 +1141,6 @@ class Split:
                                              ds.seqs[rows])
 
 
-def market_splits():
-    """Query and gallery of Market-1501's size, made by the port's
-    `synthetic_dataset` (the two splits in two threads) with one palette,
-    so that ids match across the splits. Each identity's copies cycle over
-    the 6 cameras, the queries' 3 cameras after the gallery's."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from reid_tpu_torch.data import synthetic_dataset
-
-    def make(n, seed, shift):
-        ds = synthetic_dataset(n, num_pids=N_IDS, height=256, width=128,
-                               num_cams=N_CAMS, seed=seed, palette_seed=0)
-        ds.records = [(p, pid, (i // N_IDS + shift) % N_CAMS, 0)
-                      for i, (p, pid, _, _) in enumerate(ds.records)]
-        return ds
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        query, gallery = pool.map(lambda a: make(*a), ((N_QUERY, 1, 3),
-                                                       (N_GALLERY, 2, 0)))
-    return query, gallery, time.perf_counter() - t0
-
-
 def phase_retrieval(query, gallery, make_s, profile_to=None, int8=False,
                     backbone="seres18"):
     """The retrieval path once, at the operating point (with `int8`, its
@@ -1203,6 +1214,20 @@ def retrieval_batch(query, gallery, dev):
     return both(gallery, 32), both(query, 64)
 
 
+def timed_once(fn):
+    """(fn(), its ms on CUDA events): one call, no warm-up, for a plain
+    version that takes seconds a call."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def phase_distance_kernels(kind, keep, suffix="", path="retrieval",
                            full=True):
     """K6 and K7 against their plain versions on the operands the first
@@ -1269,8 +1294,9 @@ def phase_distance_kernels(kind, keep, suffix="", path="retrieval",
         slab = v[:1024]
         m, (n, d) = slab.shape[0], v.shape
         got = dist.l1(slab, v)
-        want = dist.l1_plain(slab, v)
-        torch.cuda.synchronize()
+        # the plain version takes ~5.6 s a call: the comparison's own call
+        # is the timed one
+        want, plain_ms = timed_once(lambda: dist.l1_plain(slab, v))
         err = (got - want).abs()
         assert bool((err <= 1e-5 + 1e-5 * want.abs()).all()), err.max()
         del got, want
@@ -1283,11 +1309,7 @@ def phase_distance_kernels(kind, keep, suffix="", path="retrieval",
             v_nonzeros_per_row_mean=nnz.double().mean().item(),
             v_nonzeros_per_row_max=int(nnz.max()),
             max_abs_err=err.max().item(),
-            ms=time_ms(lambda: dist.l1(slab, v)),
-            # the plain version takes ~5.6 s a call: one timed call on the
-            # extra paths' rows
-            plain_ms=time_ms(lambda: dist.l1_plain(slab, v),
-                             reps=2 if full else 1, warm=1 if full else 0),
+            ms=time_ms(lambda: dist.l1(slab, v)), plain_ms=plain_ms,
             library_ms=time_ms(lambda: torch.cdist(slab, v, p=1),
                                reps=2 if full else 1,
                                warm=1 if full else 0),
@@ -2212,8 +2234,7 @@ def step_profile(state, cfg, batches, reps=5, step=None,
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
             step(state, batches[(2 + i) % len(batches)])
         torch.cuda.synchronize()
@@ -2222,21 +2243,19 @@ def step_profile(state, cfg, batches, reps=5, step=None,
              "sm90", "nchwToNhwc", "nhwcToNchw")
     split = {"conv_gemm_ms": 0.0, "other_ms": 0.0}
     launches = 0
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    for e in kernels:
-        key = "conv_gemm_ms" if any(h in e.key.lower() for h in heavy) \
+    kernels = device_kernels(prof)
+    for kname, n, ms in kernels:
+        key = "conv_gemm_ms" if any(h in kname.lower() for h in heavy) \
             else "other_ms"
-        split[key] += e.self_device_time_total / 1e3 / reps
-        launches += e.count
+        split[key] += ms / reps
+        launches += n
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
         f.write(f"{reps} train steps, device ms a step and launches a "
                 "step by kernel\n")
-        for e in kernels:
-            f.write(f"{e.self_device_time_total / 1e3 / reps:10.4f} ms "
-                    f"{e.count / reps:8.1f}x  {e.key[:140]}\n")
+        for kname, n, ms in kernels:
+            f.write(f"{ms / reps:10.4f} ms {n / reps:8.1f}x  "
+                    f"{kname[:140]}\n")
     return dict(split, host_syncs_in_step=0, launches_per_step=launches / reps,
                 device_ms_per_step=split["conv_gemm_ms"] + split["other_ms"],
                 traced_wall_ms_per_step=wall)
@@ -2522,10 +2541,14 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
                res["dcc_rel"]) <= 1e-3, res
 
 
+CONTINUAL_EVERY = 4
+
+
 def phase_continual(state, cfg, source, tmp):
     """`produce_pseudo_data` on a synthetic DukeMTMC-sized target (16,522
     images of 702 ids at 256x128, on disk), dense search plan (K6 ranks,
-    K7 sums), then `train_continual` for one epoch over the merged split;
+    K7 sums), then `train_continual` for one epoch over every
+    CONTINUAL_EVERY-th record of the merged split;
     K6/K7 launches zeroed just before and read just after. Then K6's first
     query block and a 1,024-row slab of K7's min-sum, as the run computed
     them, against their plain versions on the run's own operands, at phase
@@ -2588,10 +2611,15 @@ def phase_continual(state, cfg, source, tmp):
     pseudo_s = time.perf_counter() - t0
     # includes V (N x N f32), held past the call for the check below
     pseudo_peak = torch.cuda.max_memory_allocated()
+    # depth cut for the smoke's clock: the epoch runs over every
+    # CONTINUAL_EVERY-th record of the source split and of the pseudo
+    # records (all 751 + k classes stay)
+    source = ReIDDataset(source.records[::CONTINUAL_EVERY],
+                         source.num_train_pids, source.height, source.width)
     t0 = time.perf_counter()
     state, losses = image_train.train_continual(
-        cfg, state, source, records, centroids, k, epochs=1,
-        ckpt_dir=os.path.join(tmp, "ckpt_continual"))
+        cfg, state, source, records[::CONTINUAL_EVERY], centroids, k,
+        epochs=1, ckpt_dir=os.path.join(tmp, "ckpt_continual"))
     torch.cuda.synchronize()
     counts = _lib.launch_counts()
     continual_s = time.perf_counter() - t0
@@ -2628,7 +2656,8 @@ def phase_continual(state, cfg, source, tmp):
          auto_vs_dense_max_abs=auto_vs_dense, pseudo_label_s=pseudo_s,
          dense_jaccard_gb=n * n * 4 / 1e9, peak_mem_gb_pseudo=pseudo_peak /
          1e9, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         continual_s=continual_s, continual_losses=losses,
+         continual_s=continual_s, continual_images=len(source),
+         continual_losses=losses,
          classes=int(state.model.classifier.weight.shape[0]),
          launches=counts, kernel_checks=checks)
     assert k >= 0.2 * DUKE_IDS and len(jac_s) == 1
@@ -2729,11 +2758,13 @@ def phase_zoo_kernels(kind, crops, table=None, counts=None):
     return rows
 
 
-def phase_track_zoo(tmp, n_frames, chunk, backbone="resnet50",
+def phase_track_zoo(tmp, scene, chunk, backbone="resnet50",
                     k1_per_call=None, k1=True, crop_hw=(256, 128),
                     modes=("bf16", "int8")):
     """The track path with `--backbone backbone` at phase 4's operating
-    point with `crop_hw` crops, --chunk `chunk`: the default bf16 embed
+    point on `scene` (`write_scene`'s frames directory and det.txt, written
+    once for every backbone) with `crop_hw` crops, --chunk `chunk`, its
+    track files written into `tmp`: the default bf16 embed
     (no kernel of ours) and `--int8` (K1 at the backbone's sites, no fused
     block; without `k1`, no launch of K1 or K2 at all), as `modes` names
     them; fps, the stage split and peak device memory of each. With
@@ -2742,7 +2773,7 @@ def phase_track_zoo(tmp, n_frames, chunk, backbone="resnet50",
     SERes18 family has once). Returns the last mode's run."""
     import torch
 
-    fdir, det = write_scene(tmp, n_frames)
+    fdir, det = scene
     base = ["--detections", det, "--frames_dir", fdir, "--backbone",
             backbone, "--max_dets", "64", "--num_classes", "751",
             "--crop_hw", *map(str, crop_hw), "--chunk", str(chunk)]
@@ -2987,12 +3018,14 @@ def phase_train_plr(instances):
     return res
 
 
-def market_splits_at(hw):
-    """Query and gallery of phase 6's sizes, ids and cameras at `hw`
-    (448x224 for the transformers), the pixels drawn on the card: each
-    identity's colour from one palette plus uniform noise in [-25, 25),
-    as `synthetic_dataset` makes them (its host generator would take a
-    minute at this size). Returns (query, gallery, seconds)."""
+def market_splits(hw=(256, 128)):
+    """Query and gallery of Market-1501's size at `hw` (448x224 for the
+    transformers): 3,368 and 19,732 images of 750 ids, each identity's
+    copies cycling over the 6 cameras, the queries' 3 cameras after the
+    gallery's. The pixels are drawn on the card: each identity's colour
+    from one palette plus uniform noise in [-25, 25), as
+    `synthetic_dataset` makes them (its host generator takes 24 s at
+    256x128). Returns (query, gallery, seconds)."""
     import torch
     from reid_tpu_torch.data.dataset import ReIDDataset
 
@@ -3096,6 +3129,310 @@ def phase_train_transformer(backbone, instances):
     return res
 
 
+# the video operating point (`video_main`'s defaults: bs 8, seq_len 10,
+# 256x128 crops, bf16, video_resnet50): a MOT16-shaped tree of two
+# sequences of 1920x1080 JPEG frames, VIDEO_IDS pedestrian tracks (half a
+# sequence) and one distractor track (class 7) a sequence, one epoch of
+# VIDEO_IDS / 8 steps (of the CLI's 25); the step alone on one kept batch,
+# VIDEO_WARM untimed then VIDEO_STEPS timed
+VIDEO_IDS, VIDEO_FRAMES, VIDEO_WARM, VIDEO_STEPS = 64, 24, 3, 10
+
+
+def write_mot_tree(root, n_ids=VIDEO_IDS, n_frames=VIDEO_FRAMES, seed=0):
+    """Two MOT16 sequences under `root` (MOT16-02, MOT16-04): 1080p JPEG
+    frames of a textured background with person-shaped boxes painted on,
+    and gt.txt grouped by track id (the relabelling needs it): n_ids / 2
+    pedestrians a sequence, each in a run of 12-`n_frames` frames, and one
+    distractor (class 7) in every frame. Returns the gt.txt paths."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for name in ("MOT16-02", "MOT16-04"):
+        seq = os.path.join(root, name)
+        os.makedirs(os.path.join(seq, "gt"))
+        os.makedirs(os.path.join(seq, "img1"))
+        n = n_ids // 2
+        hs = np.exp(rng.uniform(np.log(80), np.log(320), n + 1))
+        ws = hs * 0.41
+        xs = rng.uniform(0, 1920 - ws - 1)
+        ys = rng.uniform(0, 1080 - hs - 1)
+        first = rng.integers(1, n_frames - 11, n + 1)
+        last = np.minimum(first + rng.integers(11, n_frames, n + 1),
+                          n_frames)
+        first[-1], last[-1] = 1, n_frames
+        colors = rng.integers(40, 255, (n + 1, 3), dtype=np.uint8)
+        bg = textured_background(rng, 1080, 1920, grain=8)
+        for t in range(1, n_frames + 1):
+            frame = bg.copy()
+            for j in range(n + 1):
+                if first[j] <= t <= last[j]:
+                    frame[int(ys[j]):int(ys[j] + hs[j]),
+                          int(xs[j]):int(xs[j] + ws[j])] = colors[j]
+            Image.fromarray(frame).save(
+                os.path.join(seq, "img1", f"{t:06d}.jpg"), quality=90)
+        rows = [f"{t},{j + 1},{xs[j]:.2f},{ys[j]:.2f},{ws[j]:.2f},"
+                f"{hs[j]:.2f},1,{7 if j == n else 1},1"
+                for j in range(n + 1) for t in range(first[j], last[j] + 1)]
+        path = os.path.join(seq, "gt", "gt.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        paths.append(path)
+    return paths
+
+
+def conv_flops(model, x):
+    """Multiply-adds x 2 of the convs and dense layers of one forward of
+    `model` on `x` (from their output shapes)."""
+    import torch
+    from reid_tpu_torch.models.layers import Conv3d, Linear
+
+    total = [0]
+
+    def hook(m, inp, out):
+        if isinstance(m, Conv3d):
+            k = int(np.prod(m.kernel_size)) * m.in_channels
+        else:
+            k = m.in_features
+        total[0] += 2 * out.numel() * k
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv3d, Linear))]
+    try:
+        with torch.no_grad():
+            model(x, train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_video_train(tmp):
+    """`cli.video_main` itself at its defaults (bs 8, seq_len 10, 256x128,
+    bf16, the 3-D video_resnet50 with 64 classes) for one epoch of 8 steps
+    on a synthetic MOT16-shaped tree (`write_mot_tree`); the loader cuts
+    each crop from its whole decoded 1080p JPEG frame, as the reference
+    does. Reports the step period on the device's clock (CUDA events
+    after each step), the loader's host seconds a step, peak memory and
+    the losses (finite). Then, on the run's state and its last batch: the
+    step alone (median of VIDEO_STEPS after VIDEO_WARM), then
+    `step_profile`: one step under torch.cuda's sync debug mode "error"
+    (no host read, no host copy) and two traced steps for launches and
+    device time a step, and the idle share; the forward's conv and dense
+    FLOP (x3 for a step) over the step alone."""
+    import statistics
+
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.train import video_train
+
+    root = os.path.join(tmp, "mot16")
+    t0 = time.perf_counter()
+    gts = write_mot_tree(root)
+    data_s = time.perf_counter() - t0
+    events, waits, kept = [], [], {}
+    make, batches = video_train.make_video_train_step, \
+        video_train.VideoTrackletDataset.batches
+
+    def make_step(cfg):
+        step = make(cfg)
+
+        def timed(state, batch):
+            out = step(state, batch)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            kept.update(state=state, batch=batch, step=step)
+            return out
+        return timed
+
+    def timed_batches(self, batch_size, rng):
+        it = batches(self, batch_size, rng)
+        while True:
+            t = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t)
+            yield b
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    train_video = video_train.train_video
+
+    def keep_losses(*a, **k):
+        v, ls = train_video(*a, **k)
+        losses.extend(ls)
+        return v, ls
+    t0 = time.perf_counter()
+    with patched(video_train, "make_video_train_step", lambda _: make_step), \
+            patched(video_train.VideoTrackletDataset, "batches",
+                    lambda _: timed_batches), \
+            patched(video_train, "train_video", lambda _: keep_losses):
+        variables = cli.video_main(["--gt_paths", *gts, "--prefix", root,
+                                    "--epochs", "1"], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    assert len(losses) == VIDEO_IDS // 8 and all(np.isfinite(losses)), \
+        losses
+    assert variables["params"]["classifier"]["kernel"].shape == (2048,
+                                                                  VIDEO_IDS)
+    period = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+    state, batch, step = kept["state"], kept["batch"], kept["step"]
+    for _ in range(VIDEO_WARM):
+        step(state, batch)
+    ms = []
+    for _ in range(VIDEO_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, loss = step(state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    assert np.isfinite(float(loss))
+    flop = 3 * conv_flops(state.model, batch["images"])
+    med = statistics.median(ms)
+    # step_profile's third step runs under the sync debug mode "error"
+    prof = step_profile(state, None, [batch] * 3, reps=2, step=step,
+                        name="video_train_step")
+    emit("video train", ids=VIDEO_IDS, sequences=2, frames=VIDEO_FRAMES,
+         batch=8, seq_len=10, hw=[256, 128], dtype="bfloat16",
+         steps=len(losses), data_s=data_s, wall_s=wall,
+         step_period_ms_median=statistics.median(period) if period else None,
+         loader_s_per_step=statistics.median(waits),
+         loader_s_total=sum(waits),
+         step_ms_median=med, step_ms_min=min(ms), step_ms_max=max(ms),
+         clips_per_s=8 * 1e3 / med, flop_per_step=flop,
+         tflop_per_s=flop / med / 1e9, peak_mem_gb=peak / 1e9,
+         losses=losses, **prof,
+         device_idle_share=1 - prof["device_ms_per_step"] / med)
+
+
+def phase_video_card_vs_cpu():
+    """One f32 video train step (`make_video_train_step`: the hybrid loss,
+    MADGRAD without a clip, the centers' step) from one state on the card
+    and on the CPU, `VideoResNet(blocks=(1, 1, 1, 1))` (the model's
+    widths, one block a stage) at 2 x 4 x 64 x 32 with 8 classes, TF32
+    off: phase 14's limits (the loss 1e-4 relative, the gradient, here
+    MADGRAD's first moment sum lr g, within 1e-3 of its norm, the update
+    at a cosine >= 0.9994 and within 3.5% of its norm, statistics and
+    centers within 1e-3 of their largest magnitude), or twice the CPU's
+    own spread between two conv algorithms where that is wider (`spread`,
+    as phase 28; here the loss's limit too: at this size the train-mode
+    norms of the last stages take 16 values a channel, and the two CPU
+    algorithms' losses lie 7.5e-4 apart, the card's 1.1e-3 from the
+    CPU's, on an H100). Then the bf16 eval forward of `video_resnet50`
+    (751 classes) on 2 clips of 10 x 256 x 128, card against CPU: a
+    cosine >= 0.999 a row for the BNNeck feature and the logits."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.config import Config, ModelConfig
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.models.video3d import VideoResNet
+    from reid_tpu_torch.train.video_train import (create_video_train_state,
+                                                  make_video_train_step)
+    from reid_tpu_torch.utils.flax_bridge import (flax_variables,
+                                                  load_flax_variables)
+
+    c, shape = 8, (2, 4, 64, 32, 3)
+    variables = flax_variables(VideoResNet(
+        num_classes=c, blocks=(1, 1, 1, 1)).init_weights(
+            torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(0)
+    images = rng.random(shape, dtype=np.float32)
+    labels = np.asarray([0, 5], np.int32)
+    cfg = Config(model=ModelConfig(dtype="float32"))
+
+    def one_step(dev):
+        model = VideoResNet(num_classes=c, blocks=(1, 1, 1, 1)).to(dev)
+        load_flax_variables(model, variables)
+        state = create_video_train_state(model, c,
+                                         torch.Generator().manual_seed(2))
+        start = [p.detach().clone() for p in model.parameters()]
+        t0 = time.perf_counter()
+        state, loss = make_video_train_step(cfg)(state, {
+            "images": torch.from_numpy(images).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)})
+        loss = float(loss)
+        return dict(
+            loss=loss, s=time.perf_counter() - t0,
+            mu=torch.cat([t.ravel() for t in state.opt_state["grad_sum"]])
+            .cpu().double(),
+            update=torch.cat([(p.detach() - s).ravel() for p, s in zip(
+                model.parameters(), start)]).cpu().double(),
+            stats=[t.cpu() for t in model.buffers()],
+            centers=state.loss_state.centers.cpu())
+
+    out = {}
+    with full_f32():
+        for name, mkldnn in (("cpu", True), ("cuda", True),
+                             ("cpu_aten", False)):
+            dev = "cuda" if name == "cuda" else "cpu"
+            with torch.backends.mkldnn.flags(enabled=mkldnn):
+                out[name] = one_step(dev)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    def apart(got, want):
+        u_g, u_c = got["update"], want["update"]
+        return dict(
+            grad_rel_norm=float((got["mu"] - want["mu"]).norm()
+                                / want["mu"].norm()),
+            update_cosine=float(u_g @ u_c / (u_g.norm() * u_c.norm())),
+            update_rel_norm=float((u_g - u_c).norm() / u_c.norm()))
+    cpu, card = out["cpu"], out["cuda"]
+    res = dict(loss_card=card["loss"], loss_cpu=cpu["loss"],
+               loss_rel=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+               **apart(card, cpu),
+               batch_stats_rel=max(rel(a, b) for a, b in
+                                   zip(card["stats"], cpu["stats"])),
+               centers_rel=rel(card["centers"], cpu["centers"]),
+               cpu_step_s=cpu["s"], cpu_aten_step_s=out["cpu_aten"]["s"])
+    spread = apart(out["cpu_aten"], cpu)
+    spread["loss_rel"] = abs(out["cpu_aten"]["loss"] - cpu["loss"]) / abs(
+        cpu["loss"])
+    limits = dict(loss_rel=max(1e-4, 2 * spread["loss_rel"]),
+                  grad_rel_norm=max(1e-3, 2 * spread["grad_rel_norm"]),
+                  update_cosine=min(0.9994,
+                                    1 - 2 * (1 - spread["update_cosine"])),
+                  update_rel_norm=max(0.035,
+                                      2 * spread["update_rel_norm"]))
+    res.update(cpu_spread=spread, limits=limits)
+
+    # the bf16 eval forward at the operating point, card against CPU
+    gen = torch.Generator().manual_seed(3)
+    cpu_model = build_model("video_resnet50", N_CLASSES,
+                            dtype=torch.bfloat16, device="cpu",
+                            generator=torch.Generator().manual_seed(4))
+    card_model = build_model("video_resnet50", N_CLASSES,
+                             dtype=torch.bfloat16, device="cuda")
+    load_flax_variables(card_model, flax_variables(cpu_model))
+    clips = torch.rand((2, 10, 256, 128, 3), generator=gen)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = cpu_model(clips)
+        cpu_s = time.perf_counter() - t0
+        got = card_model(clips.to("cuda"))
+    cos = [torch.nn.functional.cosine_similarity(
+        g.float().cpu(), w.float(), dim=1).min().item()
+        for g, w in zip(got, want)]
+    res.update(eval_bf16_min_cosine_feature=cos[0],
+               eval_bf16_min_cosine_logits=cos[1], eval_cpu_s=cpu_s)
+    emit("video card vs cpu", batch=shape[0], seq_len=shape[1],
+         hw=list(shape[2:4]), classes=c, **res)
+    assert res["loss_rel"] <= limits["loss_rel"], res
+    assert res["grad_rel_norm"] <= limits["grad_rel_norm"], res
+    assert res["update_cosine"] >= limits["update_cosine"] and \
+        res["update_rel_norm"] <= limits["update_rel_norm"], res
+    assert max(res["batch_stats_rel"], res["centers_rel"]) <= 1e-3, res
+    assert min(cos) >= 0.999, res
+
+
 def set_launches(rows, sites):
     """Each K1/K2 row's launches at its call site in one run of its path."""
     for row in rows:
@@ -3140,8 +3477,11 @@ def main():
     phase_gauntlet()
     _, stream_rows = phase_streams(kind, dev, args.profile)
     phase_embed()
-    with tempfile.TemporaryDirectory() as tmp:
-        zoo_track = phase_track_zoo(tmp, ZOO_TRACK_FRAMES, 32)
+    # one scene for the track runs of phases 17-29
+    zoo_dir = tempfile.TemporaryDirectory()
+    tmp = zoo_dir.name
+    scene = write_scene(tmp, ZOO_TRACK_FRAMES)
+    zoo_track = phase_track_zoo(tmp, scene, 32)
     baseline_sites = phase_zoo_embed()["baseline"]
     for row in zoo_rows:
         set_launches([row], zoo_track["site_launches"]
@@ -3149,26 +3489,23 @@ def main():
     # phases 21-23: the triplet and EMA attention backbones
     attn_track = {}
     for backbone in ATTN_K1_COUNT:
-        with tempfile.TemporaryDirectory() as tmp:
-            attn_track[backbone] = phase_track_zoo(
-                tmp, ZOO_TRACK_FRAMES, 32, backbone,
-                k1_per_call=ATTN_K1_COUNT[backbone])
+        attn_track[backbone] = phase_track_zoo(
+            tmp, scene, 32, backbone, k1_per_call=ATTN_K1_COUNT[backbone])
     for row in attn_rows:
         set_launches([row], attn_track[row["name"].split()[1]][
             "site_launches"])
     phase_zoo_embed(tuple(ATTN_K1_COUNT), ATTN_K1_COUNT, "embed attention")
     # phases 25-26: OSNet and PLR-OSNet, no K1 or K2 on their int8 route
     for backbone in OSNET_BACKBONES:
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_track_zoo(tmp, ZOO_TRACK_FRAMES, 32, backbone, k1=False)
+        phase_track_zoo(tmp, scene, 32, backbone, k1=False)
     phase_zoo_embed(OSNET_BACKBONES, {b: 0 for b in OSNET_BACKBONES},
                     "embed osnet", int8_cosine=0.99)
     # phases 29-30: ViT and Swin at 448x224, no K1 or K2 on their int8
     # route
     for backbone, modes in TRANSFORMER_TRACK.items():
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_track_zoo(tmp, ZOO_TRACK_FRAMES, 32, backbone, k1=False,
-                            crop_hw=TRANSFORMER_HW, modes=modes)
+        phase_track_zoo(tmp, scene, 32, backbone, k1=False,
+                        crop_hw=TRANSFORMER_HW, modes=modes)
+    zoo_dir.cleanup()
     phase_zoo_embed(tuple(TRANSFORMER_WIDTH),
                     {b: 0 for b in TRANSFORMER_WIDTH}, "embed transformers",
                     int8_cosine=0.99, hw=TRANSFORMER_HW)
@@ -3239,7 +3576,7 @@ def main():
     del keep_p, query, gallery
     torch.cuda.empty_cache()
     # phase 31: vit f32 on phase 6's split at 448x224 (D = 1,135)
-    query, gallery, make_v = market_splits_at(TRANSFORMER_HW)
+    query, gallery, make_v = market_splits(TRANSFORMER_HW)
     keep_v, counts_v, _ = phase_retrieval(query, gallery, make_v,
                                           backbone="vit")
     keep_v.update(query_cams=query.cams, gallery_cams=gallery.cams)
@@ -3297,6 +3634,12 @@ def main():
         for backbone in TRANSFORMER_STEP:
             for instances in (4, 0):
                 phase_train_transformer(backbone, instances)
+        # phases 33-34: video ReID through video_main, then the card-vs-CPU
+        # step and eval forward
+        torch.cuda.empty_cache()
+        phase_video_train(tmp)
+        torch.cuda.empty_cache()
+        phase_video_card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6/K7 on the continual run: its launches, and each held against its

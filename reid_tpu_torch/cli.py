@@ -1,9 +1,10 @@
-"""Command-line entries of the port: tracking, retrieval evaluation and
-training.
+"""Command-line entries of the port: tracking, retrieval evaluation,
+image training and video training.
 
-Counterparts of `reid_tpu/cli.py:track_main`, `inference_main` and
-`train_main` with the same flags. Each runs on the card; `device="cpu"`
-runs the same program on the CPU with the kernels' plain versions.
+Counterparts of `reid_tpu/cli.py:track_main`, `inference_main`,
+`train_main` and `video_main` with the same flags. Each runs on the card;
+`device="cpu"` runs the same program on the CPU with the kernels' plain
+versions.
 
   * `track_main`: a frame directory, video file or webcam index in ->
     detections (a MOT det file with `--detections`, else the built-in
@@ -50,11 +51,19 @@ runs the same program on the CPU with the kernels' plain versions.
     Swin's step passes cams to a model initialised without its SIE
     table). Their step is the library (`train.state.make_optimizers`,
     `train.steps.make_train_step` with feat_dim at the model's width).
+  * `video_main`: video ReID training on MOT16 tracklets (`--gt_paths`
+    gt.txt files, frames under `--prefix`): the 3-D `video_resnet50` in
+    bf16, the hybrid loss and MADGRAD without a clip
+    (`train/video_train.py`); prints the final loss and returns the flax
+    variable tree. One device.
 
-`--backbone` takes the names `models.build_model` has (seres18, cares18,
-emares18, baseline, resnet50, agw, osnet, osnet_x1_0, osnet_x0_5,
-osnet_x0_25, plr_osnet, vit, swin_v1, swin_v2); the others (the video
-models) raise KeyError.
+`--backbone` of the three image CLIs takes the image names
+`models.build_model` has (seres18, cares18, emares18, baseline, resnet50,
+agw, osnet, osnet_x1_0, osnet_x0_5, osnet_x0_25, plr_osnet, vit, swin_v1,
+swin_v2). The video models (video_resnet50, video_resnet18) take clips,
+not images: the JAX package's image CLIs accept their names and then fail
+inside the model on the 4-D crops, so these refuse them at the parser;
+they train through `video_main`. Other names raise KeyError.
 
     python -m reid_tpu_torch.cli --detections det.txt --frames_dir frames \
         --int8 --chunk 32 --save_txt out.txt
@@ -64,6 +73,8 @@ models) raise KeyError.
         --ckpt model.npz
     python -m reid_tpu_torch.image_reid_train --root market1501 \
         --epochs 60 --export reid.pt2
+    python -m reid_tpu_torch.video_reid_train \
+        --gt_paths MOT16/train/MOT16-02/gt/gt.txt --prefix MOT16/train/
 """
 
 from __future__ import annotations
@@ -256,9 +267,23 @@ def track(argv=None, device: Optional[str] = "cuda"):
         args.source = args.frames_dir
     if not args.source and not args.detections:
         p.error("need --source and/or --detections")
+    refuse_video_backbone(p, args.backbone, "track_main")
     # the crop products and the tracker run in full f32
     with full_f32():
         return _track(args, device)
+
+
+def refuse_video_backbone(p: argparse.ArgumentParser, backbone: str,
+                          cli: str) -> None:
+    """Stop at the parser on a video model's name: the JAX package's image
+    CLIs take it and then fail inside the 3-D model on the 4-D crops."""
+    from .models.factory import VIDEO
+    if backbone in VIDEO:
+        p.error(f"--backbone {backbone}: a 3-D video model takes (N, T, H, "
+                f"W, 3) clips, not the image crops of {cli} (the JAX "
+                "package's takes the name and then fails inside the "
+                "model); train it with video_main (python -m "
+                "reid_tpu_torch.video_reid_train)")
 
 
 def yolo_calibration_frames(source: str, det_hw) -> np.ndarray:
@@ -511,6 +536,7 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
 
     p = _inference_parser()
     args = p.parse_args(argv)
+    refuse_video_backbone(p, args.backbone, "inference_main")
     if args.int8 and args.artifact:
         p.error("--int8 needs --ckpt (export an int8 artifact instead via "
                 "export_reid_artifact(int8_calib=...))")
@@ -546,12 +572,12 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
         else:
             variables, num_classes = None, num_pids
             if args.ckpt:
-                from .utils.flax_bridge import load_flax_variables, load_npz
+                from .utils.flax_bridge import (classifier_width,
+                                                load_flax_variables,
+                                                load_npz)
                 variables = load_npz(args.ckpt)
                 # a continual run's checkpoint has a wider classifier
-                params = variables["params"]
-                head = params.get("classifier", params.get("classifier1"))
-                num_classes = head["kernel"].shape[1]
+                num_classes = classifier_width(variables["params"])
             model = build_model(cfg.model.backbone, num_classes=num_classes,
                                 num_cams=cfg.model.num_cams,
                                 dtype=torch.float32, device=device,
@@ -646,6 +672,7 @@ def train_main(argv=None, device: Optional[str] = "cuda",
     `ckpt_dir`."""
     p = _train_parser()
     args = p.parse_args(argv)
+    refuse_video_backbone(p, args.backbone, "train_main")
     if args.backbone == "plr_osnet":
         # the JAX package's train_main sends it to train_cnn, whose first
         # step fails on the pair of features
@@ -692,6 +719,32 @@ def train_main(argv=None, device: Optional[str] = "cuda",
         print(f"serving artifact -> {args.export}")
     print("training complete")
     return state
+
+
+def video_main(argv=None, device: Optional[str] = "cuda"):
+    """Video ReID training (ref video_reid_train.py main :198-231), the
+    flags and defaults of `reid_tpu/cli.py:video_main`; prints the final
+    loss and returns the flax variable tree."""
+    p = argparse.ArgumentParser("video_reid_train")
+    p.add_argument("--gt_paths", nargs="+", required=True)
+    p.add_argument("--prefix", default="datasets/MOT16/train/")
+    p.add_argument("--bs", type=int, default=8)
+    p.add_argument("--epochs", type=int, default=25)
+    p.add_argument("--seq_len", type=int, default=10)
+    p.add_argument("--crop_factor", type=float, default=1.0)
+    args = p.parse_args(argv)
+
+    from .config import Config
+    from .train.video_train import VideoTrackletDataset, train_video
+
+    ds = VideoTrackletDataset(args.gt_paths, seq_len=args.seq_len,
+                              lamda=args.crop_factor,
+                              prefix_image_path=args.prefix)
+    variables, losses = train_video(Config(), ds, epochs=args.epochs,
+                                    batch_size=args.bs,
+                                    seq_len=args.seq_len, device=device)
+    print(f"video training complete; final loss {losses[-1]:.4f}")
+    return variables
 
 
 if __name__ == "__main__":

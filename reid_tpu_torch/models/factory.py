@@ -2,9 +2,10 @@
 `reid_tpu/models/factory.py:build_model` for the backbones the port has:
 the SERes18 family (seres18, cares18, emares18), the torchvision-style
 ResNets (baseline, resnet50, agw), OSNet (osnet = osnet_x1_0, osnet_x0_5,
-osnet_x0_25), PLR-OSNet (plr_osnet), ViT-t with SIE (vit) and Swin-T v1 /
-v2 with the U-Net head (swin_v1, swin_v2). The video models
-(video_resnet50, video_resnet18) are not ported."""
+osnet_x0_25), PLR-OSNet (plr_osnet), ViT-t with SIE (vit), Swin-T v1 /
+v2 with the U-Net head (swin_v1, swin_v2) and the 3-D video ResNets
+(video_resnet50, video_resnet18), which take (N, T, H, W, 3) clips: every
+name of the JAX package's registry."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from .baseline import ResNetReID
 from .osnet import CHANNELS, OSNet, PLROSNet
 from .seres18 import SERes18IBN
 from .swin import SwinTransformer
+from .video3d import VideoResNet
 from .vit import ViT
 
 
@@ -51,9 +53,13 @@ MODELS = {
     # Swin-T: hidden 96, layers (2, 2, 6, 2), heads (3, 6, 12, 24), window 7
     "swin_v1": (SwinTransformer, dict(version="v1")),
     "swin_v2": (SwinTransformer, dict(version="v2")),
+    # the 3-D video ResNets of tracklet ReID, on (N, T, H, W, 3) clips
+    "video_resnet50": (VideoResNet, dict(blocks=(3, 4, 6, 3))),
+    "video_resnet18": (VideoResNet, dict(blocks=(2, 2, 2, 2))),
 }
 
 TRANSFORMERS = ("vit", "swin_v1", "swin_v2")
+VIDEO = ("video_resnet50", "video_resnet18")
 
 
 def supports_renorm(name: str) -> bool:
@@ -77,11 +83,11 @@ def build_model(name: str, num_classes: int, num_cams: int = 6,
     go to the model's constructor, as the JAX factories pass them
     (`vit`: num_seqs, dim, depth, heads, mlp_dim, dropout; `swin_*`:
     hidden_dim, layers, heads, head_dim, window_size, and `sie=True` for
-    the SIE table that flax creates when `init` sees a cam). Names the
-    port lacks (the video models) raise KeyError."""
+    the SIE table that flax creates when `init` sees a cam; the video
+    models: blocks, pooling). Names that neither package has raise
+    KeyError."""
     if name not in MODELS:
-        raise KeyError(f"backbone '{name}' is not ported yet; have "
-                       f"{sorted(MODELS)}")
+        raise KeyError(f"no backbone '{name}'; have {sorted(MODELS)}")
     cls = MODELS[name][0]
     if renorm:
         if not supports_renorm(name):

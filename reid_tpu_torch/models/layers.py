@@ -2,17 +2,19 @@
 package.
 
 Counterparts of `reid_tpu/models/layers.py`: `InstanceNorm`, `IBN`,
-`LBN1D`, `SEBlock`, `GeM`, `GeM1D`, `AttentionPooling`, `MetaAconC1D`,
-BatchNorm or `BatchRenorm` through `make_norm2d` (train and eval mode),
-`BatchRenormNonIID`, `conv3x3` / `conv1x1` and `max_pool_same`; flax's
-`nn.LayerNorm` and `nn.GroupNorm`; for the detectors flax's `nn.silu`,
-`nn.ConvTranspose(padding="SAME")` and the 2x nearest `jax.image.resize`;
-for the transformers flax's `nn.gelu` (the tanh approximation),
-`nn.Dropout` with its masks drawn from a caller's `torch.Generator`, and
-the "SAME" padding of a strided conv. Activations are (N, H, W, C) at
-every public function, as in the flax modules; a conv
-permutes to PyTorch's NCHW view of the same memory (channels-last), so no
-copy is made. Each module computes at its `dtype` and keeps its parameters
+`LBN1D`, `SEBlock`, `GeM`, `GeM1D`, `GeM3D`, `AttentionPooling`,
+`MetaAconC1D`, BatchNorm or `BatchRenorm` through `make_norm2d` (train
+and eval mode), `BatchRenormNonIID`, `conv3x3` / `conv1x1` and
+`max_pool_same`; flax's `nn.LayerNorm` and `nn.GroupNorm`; for the
+detectors flax's `nn.silu`, `nn.ConvTranspose(padding="SAME")` and the 2x
+nearest `jax.image.resize`; for the transformers flax's `nn.gelu` (the
+tanh approximation), `nn.Dropout` with its masks drawn from a caller's
+`torch.Generator`, and the "SAME" padding of a strided conv; for the
+video model a 3-D conv (`Conv3d`) and its (1, 3, 3) max pool
+(`max_pool3d`). Activations are (N, H, W, C) at every public function,
+(N, T, H, W, C) for a clip, as in the flax modules; a conv permutes to
+PyTorch's NCHW view of the same memory (channels-last), so no copy is
+made. Each module computes at its `dtype` and keeps its parameters
 in f32, casting at the points flax does: convs and dense layers cast their
 input and kernel to `dtype`, norms and pooling compute in f32 and return
 `dtype`.
@@ -48,11 +50,12 @@ def lecun_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
                                  generator=generator)
 
 
-def _tf32_convs():
-    """cuDNN's TF32 allowed inside, its other flags as they are."""
+def _tf32_convs(allow: bool = True):
+    """cuDNN's TF32 allowed (or, with `allow` False, not) inside, its other
+    flags as they are."""
     c = torch.backends.cudnn
     return c.flags(enabled=c.enabled, benchmark=c.benchmark,
-                   deterministic=c.deterministic, allow_tf32=True)
+                   deterministic=c.deterministic, allow_tf32=allow)
 
 
 class Conv2d(nn.Conv2d):
@@ -119,6 +122,56 @@ class Conv2d(nn.Conv2d):
             return y.to(self.dtype).to(torch.float32) + self.bias.to(
                 self.dtype).to(torch.float32)
         return y + self.bias.to(self.dtype)
+
+
+def _triple(v) -> Tuple[int, int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * 3
+
+
+class Conv3d(nn.Conv3d):
+    """Conv on (N, T, H, W, C) clips, bias-free: flax `nn.Conv` with a
+    (kT, kH, kW) kernel and the explicit padding k // 2 on each axis
+    (`reid_tpu/models/video3d.py:conv3d`). The activations permute to
+    PyTorch's NCDHW view of the same memory (channels-last-3d), so no
+    copy is made. `dtype`, `keep_f32` and `f32_sum` as `Conv2d`'s. An f32
+    conv (`dtype` f32) runs with cuDNN's TF32 off, which cuDNN otherwise
+    allows by default and which rounds f32 operands to 10 mantissa
+    bits."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride=1,
+                 dtype=torch.float32, keep_f32: bool = False,
+                 f32_sum: bool = False):
+        k = _triple(kernel)
+        super().__init__(cin, cout, k, stride=_triple(stride),
+                         padding=tuple(x // 2 for x in k), bias=False)
+        self.dtype = dtype
+        self.keep_f32 = keep_f32
+        self.f32_sum = f32_sum
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        kt, kh, kw = self.kernel_size
+        kaiming_(self.weight.data, kt * kh * kw * self.out_channels,
+                 generator)
+
+    def _conv(self, x, w):
+        return F.conv3d(x, w, stride=self.stride, padding=self.padding)
+
+    def forward(self, x):
+        x = x.permute(0, 4, 1, 2, 3).to(self.dtype)
+        w = self.weight.to(self.dtype)
+        f32 = torch.float32
+        if self.dtype == f32:
+            with _tf32_convs(False):
+                y = self._conv(x, w)
+        elif self.keep_f32:
+            # exact for bf16 operands under TF32, as in `Conv2d`
+            with _tf32_convs():
+                y = self._conv(x.to(f32), w.to(f32))
+        elif self.f32_sum and x.device.type == "cpu":
+            y = self._conv(x.to(f32), w.to(f32)).to(self.dtype)
+        else:
+            y = self._conv(x, w)
+        return y.permute(0, 2, 3, 4, 1)
 
 
 def conv_transpose_same_pads(k: int, s: int) -> Tuple[int, int]:
@@ -398,7 +451,8 @@ def make_norm2d(c: int, dtype=torch.float32, renorm: bool = False):
 
 
 class InstanceNorm(nn.Module):
-    """Per-sample, per-channel normalization over the spatial axes."""
+    """Per-sample, per-channel normalization over every axis between the
+    batch and the channels: (H, W) of an image, (T, H, W) of a clip."""
 
     def __init__(self, c: int, eps: float = 1e-5, dtype=torch.float32):
         super().__init__()
@@ -409,8 +463,9 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x):
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=(1, 2), keepdim=True)
-        var = torch.square(xf - mean).mean(dim=(1, 2), keepdim=True)
+        dims = tuple(range(1, x.ndim - 1))
+        mean = xf.mean(dim=dims, keepdim=True)
+        var = torch.square(xf - mean).mean(dim=dims, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y.to(self.dtype)
@@ -477,7 +532,9 @@ def sigmoid_stepwise(x: torch.Tensor) -> torch.Tensor:
 
 
 class GeM(nn.Module):
-    """Generalized-mean pooling with learnable p: (N, H, W, C) -> (N, C)."""
+    """Generalized-mean pooling with learnable p over the axes `dims`:
+    (N, H, W, C) -> (N, C)."""
+    dims = (1, 2)
 
     def __init__(self, p_init: float = 3.0, eps: float = 1e-6,
                  dtype=torch.float32):
@@ -492,18 +549,18 @@ class GeM(nn.Module):
         # copy from the host would wait for the device's queue)
         xf = torch.maximum(x.to(torch.float32),
                            torch.full((), self.eps, device=x.device))
-        pooled = torch.mean(xf ** self.p, dim=(1, 2)) ** (1.0 / self.p)
+        pooled = torch.mean(xf ** self.p, dim=self.dims) ** (1.0 / self.p)
         return pooled.to(self.dtype)
 
 
 class GeM1D(GeM):
     """GeM over a token axis: (N, L, C) -> (N, C)."""
+    dims = (1,)
 
-    def forward(self, x):
-        xf = torch.maximum(x.to(torch.float32),
-                           torch.full((), self.eps, device=x.device))
-        pooled = torch.mean(xf ** self.p, dim=1) ** (1.0 / self.p)
-        return pooled.to(self.dtype)
+
+class GeM3D(GeM):
+    """GeM over a clip's (T, H, W): (N, T, H, W, C) -> (N, C)."""
+    dims = (1, 2, 3)
 
 
 def in_dtype(v: float, dtype) -> float:
@@ -690,3 +747,12 @@ def max_pool_same(x, window: int = 3, stride: int = 2, padding: int = 1):
     padding 1 by default)."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding=padding)
     return y.permute(0, 2, 3, 1)
+
+
+def max_pool3d(x):
+    """flax `nn.max_pool(x, (1, 3, 3), strides=(1, 2, 2), padding=((0,
+    0), (1, 1), (1, 1)))` on (N, T, H, W, C), padded with -inf: the window
+    spans one frame, so each frame is pooled as an image."""
+    n, t = x.shape[:2]
+    y = max_pool_same(x.reshape(n * t, *x.shape[2:]))
+    return y.reshape(n, t, *y.shape[1:])

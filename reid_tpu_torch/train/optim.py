@@ -1,11 +1,12 @@
 """MADGRAD (Defazio & Jelassi 2021), the optimizer of PLR-OSNet's loop
 without PK sampling (ref image_reid_train.py:201: lr 0.01, weight decay
-5e-4, momentum 0.9).
+5e-4, momentum 0.9) and of the video loop (ref video_reid_train.py:115:
+lr 1e-4, weight decay 5e-4, momentum 0, no clip).
 
-Counterpart of `reid_tpu/train/optim.py:madgrad` inside the global-norm
-clip (`optax.chain(clip_by_global_norm, madgrad)`), written as
-`torch._foreach` updates on the parameters in place, as
-`state.ModelOptimizer` is:
+Counterpart of `reid_tpu/train/optim.py:madgrad`, inside the global-norm
+clip (`optax.chain(clip_by_global_norm, madgrad)`) or, with `grad_clip`
+None, bare as the video loop builds it; written as `torch._foreach`
+updates on the parameters in place, as `state.ModelOptimizer` is:
 
     g     <- clip(g) + weight_decay * p     (L2 into the gradient)
     lamb   = lr(k) * sqrt(k + 1)            (k: updates so far)
@@ -23,7 +24,7 @@ values, 1 ulp; see tests/test_torch_plr_train.py).
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -54,11 +55,12 @@ def cbrt(v: torch.Tensor) -> torch.Tensor:
 
 class Madgrad:
     """optax.chain(clip_by_global_norm(grad_clip), madgrad(schedule,
-    momentum, weight_decay)) over a list of parameters; the state is
-    {"count", "grad_sum", "grad_sum_sq", "x0"} (optax's `MadgradState`)."""
+    momentum, weight_decay)) over a list of parameters, or madgrad alone
+    with `grad_clip` None; the state is {"count", "grad_sum",
+    "grad_sum_sq", "x0"} (optax's `MadgradState`)."""
 
     def __init__(self, schedule: Schedule, weight_decay: float,
-                 grad_clip: float, momentum: float = 0.9):
+                 grad_clip: Optional[float], momentum: float = 0.9):
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
@@ -75,9 +77,14 @@ class Madgrad:
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
               state: dict) -> None:
         """One update of `params` and `state`, in place."""
-        g = clip_by_global_norm(list(grads), self.grad_clip)
-        if self.weight_decay:
-            torch._foreach_add_(g, params, alpha=self.weight_decay)
+        if self.grad_clip is None:
+            g = list(grads)
+            if self.weight_decay:
+                g = torch._foreach_add(g, params, alpha=self.weight_decay)
+        else:
+            g = clip_by_global_norm(list(grads), self.grad_clip)
+            if self.weight_decay:
+                torch._foreach_add_(g, params, alpha=self.weight_decay)
         k = state["count"]
         lamb = float(_F(self.schedule(k)) * np.sqrt(_F(k) + _F(1)))
         s, v = state["grad_sum"], state["grad_sum_sq"]

@@ -1,7 +1,8 @@
 """Learning-rate schedules as plain step -> lr functions.
 
 Counterpart of `reid_tpu/train/schedules.py` (ref `reid/train_prepare.py`
-WarmUpScheduler :50-81 and WarmUpCosineScheduler :84-117). The step is
+WarmUpScheduler :50-81 and WarmUpCosineScheduler :84-117), and of the
+staircase `optax.exponential_decay` of the video loop. The step is
 the optimizer's update count, a host integer, and the arithmetic is f32
 as in the JAX package's traced schedule, so the lr is computed on the
 host without a device read.
@@ -51,5 +52,20 @@ def warmup_linear_hold_schedule(base_lr: float, steps_per_epoch: int,
         alpha = np.clip(epoch / _F(warmup_epochs), _F(0), _F(1))
         return float(_F(base_lr) * (_F(warmup_factor) * (_F(1) - alpha)
                                     + alpha))
+
+    return schedule
+
+
+def staircase_exponential_schedule(init_value: float, transition_steps: int,
+                                   decay_rate: float) -> Schedule:
+    """`optax.exponential_decay(init_value, transition_steps, decay_rate,
+    staircase=True)`: init * rate ** floor(step / transition_steps), in
+    f32 (the video loop's StepLR(300, 0.5), ref video_reid_train.py:116)."""
+
+    def schedule(step: int) -> float:
+        if step <= 0:
+            return float(_F(init_value))
+        p = np.floor(_F(step) / _F(transition_steps))
+        return float(_F(init_value) * np.power(_F(decay_rate), p))
 
     return schedule

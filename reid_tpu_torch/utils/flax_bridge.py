@@ -28,7 +28,9 @@ name. The transformers' attention (`models/vit.py:HeadDense`, flax's
 `MultiHeadDotProductAttention`) has 3-D kernels that a transpose would
 scramble: (in, heads, head_dim) becomes (heads * head_dim, in) and
 (heads, head_dim, out) becomes (out, heads * head_dim), a (heads,
-head_dim) bias becomes flat, and the way back restores those shapes. The
+head_dim) bias becomes flat, and the way back restores those shapes.
+The video model's 3-D conv kernels (kT, kH, kW, I, O) become (O, I, kT,
+kH, kW), named explicitly as well. The
 cls token, the position tables (ViT's (1, L + 1, D), Swin v1's
 (2ws - 1, 2ws - 1)), v2's `logit_scale` and the SIE tables keep their
 names and shapes. Swin's SIE table exists in a flax tree only where
@@ -83,8 +85,12 @@ def load_npz(path: str) -> Dict[str, Any]:
 
 
 def kernel_to_torch(k: np.ndarray) -> np.ndarray:
-    """Flax kernel layout -> PyTorch weight layout."""
+    """Flax kernel layout -> PyTorch weight layout: a 3-D conv's (kT, kH,
+    kW, I, O) becomes (O, I, kT, kH, kW), a 2-D conv's (kH, kW, I, O)
+    (O, I, kH, kW), a dense or 1-D conv's kernel its transpose."""
     k = np.asarray(k)
+    if k.ndim == 5:
+        return k.transpose(4, 3, 0, 1, 2)
     return k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
 
 
@@ -179,6 +185,16 @@ def _adopt_sie_table(model: torch.nn.Module, variables) -> None:
             torch.zeros(np.shape(table), device=dev))
 
 
+def classifier_width(params) -> int:
+    """The number of classes of a flax params tree: the width of its
+    classifier ("classifier"; PLR-OSNet's "classifier1"; the
+    transformers' "mlp_head")."""
+    for name in ("classifier", "classifier1", "mlp_head"):
+        if name in params:
+            return int(params[name]["kernel"].shape[1])
+    raise KeyError("no classifier in the checkpoint's params")
+
+
 def quant_state_from_flax(qstate, device="cuda") -> QuantState:
     """A JAX `QuantState` (or its `.tree()`) as the port's `QuantState`."""
     tree = qstate.tree() if hasattr(qstate, "tree") else qstate
@@ -196,6 +212,8 @@ def kernel_from_torch(w: np.ndarray) -> np.ndarray:
     """PyTorch weight layout -> flax kernel layout (`kernel_to_torch`'s
     inverse)."""
     w = np.asarray(w)
+    if w.ndim == 5:
+        return w.transpose(2, 3, 4, 1, 0)
     return w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.T
 
 
@@ -218,7 +236,7 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
     for mname, m in model.named_modules():
         path = mname.split(".") if mname else []
         is_conv = isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d,
-                                 torch.nn.Linear))
+                                 torch.nn.Conv3d, torch.nn.Linear))
         for name, t in m.named_parameters(recurse=False):
             arr = t.detach().to("cpu", torch.float32).numpy()
             leaf = name
@@ -316,9 +334,8 @@ def train_state_from_flax(state, cfg, steps_per_epoch: int, device="cuda"):
 
     params = state.params
     variables = {"params": params, "batch_stats": state.batch_stats}
-    classifier = "classifier1" if "classifier1" in params else "classifier"
     model = build_model(cfg.model.backbone,
-                        num_classes=np.shape(params[classifier]["kernel"])[1],
+                        num_classes=classifier_width(params),
                         num_cams=np.shape(params["cam_bias"])[0]
                         if "cam_bias" in params else cfg.model.num_cams,
                         dtype=getattr(torch, cfg.model.dtype), device=device,

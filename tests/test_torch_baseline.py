@@ -230,7 +230,8 @@ def test_fresh_non_local_block_is_identity():
 
 
 def test_unported_backbones_raise_key_error():
-    for name in ("video_resnet50", "video_resnet18"):
+    # every name of the JAX registry is ported: these are in neither
+    for name in ("video_resnet34", "video_resnet101"):
         with pytest.raises(KeyError, match="agw"):
             build_model(name, num_classes=4, device="cpu")
 

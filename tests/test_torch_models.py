@@ -133,5 +133,6 @@ def test_se_basic_block_bf16_bit_equal_flax(ibn, down, stride, cin, planes):
 
 
 def test_build_model_rejects_unported_backbone():
+    # a name that neither registry has
     with pytest.raises(KeyError):
-        build_model("video_resnet50", num_classes=4, device="cpu")
+        build_model("video_resnet34", num_classes=4, device="cpu")

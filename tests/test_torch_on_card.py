@@ -67,6 +67,11 @@ Tolerances:
     optimizer branches after two warm-up steps under the sync debug mode
     "error", and one generator
     seed giving the same step twice.
+  * the video step (VideoResNet(blocks=(1, 1, 1, 1)), bf16, 4 clips of 4
+    x 64 x 32) after two warm-up steps under the sync debug mode "error",
+    finite; its eval forward card against CPU, f32 within rtol = atol =
+    1e-4 (TF32 off inside the f32 3-D convs), bf16 at a cosine >= 0.999
+    a row.
 """
 
 import numpy as np
@@ -901,3 +906,61 @@ def test_transformer_train_step_on_card_repeats(cuda):
         out.append(torch.cat([p.detach().ravel() for p in state.params()]))
     assert torch.equal(out[0], out[1])
     assert not torch.equal(out[0], out[2])
+
+
+def _video_state(dev, dtype):
+    from reid_tpu_torch.models.video3d import VideoResNet
+    from reid_tpu_torch.train.video_train import create_video_train_state
+    model = VideoResNet(num_classes=8, blocks=(1, 1, 1, 1), dtype=dtype)
+    model.init_weights(torch.Generator().manual_seed(0))
+    return create_video_train_state(model.to(dev), 8,
+                                     torch.Generator().manual_seed(1))
+
+
+def test_video_train_step_on_card_makes_no_host_sync(cuda):
+    """The video step (bf16, MADGRAD without a clip, the centers' step)
+    after two warm-up steps reads nothing back and copies nothing from
+    the host; its loss and parameters are finite."""
+    from reid_tpu_torch.config import Config
+    from reid_tpu_torch.train.video_train import make_video_train_step
+    state = _video_state(cuda, torch.bfloat16)
+    step = make_video_train_step(Config())
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    batch = {"images": torch.rand((4, 4, 64, 32, 3), generator=gen,
+                                  device=cuda),
+             "labels": torch.arange(4, device=cuda, dtype=torch.int32) // 2}
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.opt_state["count"] == 3 and np.isfinite(float(loss))
+    assert all(bool(torch.isfinite(p).all()) for p in state.params())
+
+
+def test_video_forward_on_card_matches_cpu(cuda):
+    """VideoResNet(blocks=(1, 1, 1, 1)) in eval mode on 2 clips of 4 x 64
+    x 32: f32 (TF32 off inside the 3-D convs) within rtol = atol = 1e-4
+    of the CPU; bf16 at a cosine >= 0.999 a row."""
+    from reid_tpu_torch.utils.flax_bridge import (flax_variables,
+                                                  load_flax_variables)
+    x = torch.rand((2, 4, 64, 32, 3),
+                   generator=torch.Generator().manual_seed(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = _video_state("cpu", dtype).model
+        card = _video_state(cuda, dtype).model
+        load_flax_variables(card, flax_variables(cpu))
+        with torch.no_grad():
+            want = cpu(x)
+            got = card(x.to(cuda))
+        for g, w in zip(got, want):
+            g, w = g.float().cpu(), w.float()
+            if dtype == torch.float32:
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                           atol=1e-4)
+            else:
+                cos = torch.nn.functional.cosine_similarity(g, w, dim=1)
+                assert float(cos.min()) >= 0.999, cos
