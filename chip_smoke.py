@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 13 min of command
+    python3 chip_smoke.py             # on one card, about 13-14 min of command
     python3 chip_smoke.py --profile   # the same, tracing the track runs,
                                       # a chunk of each stream operating
                                       # point and the retrieval run
@@ -104,10 +104,10 @@ Phases, one JSON line each:
   4d. streams multi-stream tracking (`tracking.streams.make_stream_tracker`)
               with the CLI's int8 embed at the two operating points of
               STREAM_POINTS, each stream its own seeded scene:
-              multistream8 (8 streams, --chunk 64, 3 chunks, 480x640, 16
+              multistream8 (8 streams, --chunk 64, 2 chunks, 480x640, 16
               boxes in 32 slots, 64 track slots: one embed call of 8,192
               crops a chunk) and mot16_load_multistream8 (8 streams,
-              --chunk 8, 4 chunks, 1080p, 50 boxes in 64 slots, 128 track
+              --chunk 8, 3 chunks, 1080p, 50 boxes in 64 slots, 128 track
               slots: 3,200 crops),
               then botsort with GMC at the second on PAN scenes (each
               stream's device affines within 1 px of the pan). Each chunk's
@@ -183,7 +183,7 @@ Phases, one JSON line each:
               int8 artifact with `--attributes_mat` (a .mat written here)
               on an in-memory split of 64 queries and 256 gallery images;
  13. train    `cli.train_main` on a synthetic Market-shaped JPEG
-              tree written to a temporary directory (751 ids of 17
+              tree written to a temporary directory (751 ids of 8
               images, two colours an id, 1 query and 2 gallery images an
               id): SERes18-IBN in bf16 at 256x128, 751 classes, --bs 64
               --instance 4, one epoch, --export. The step period on the
@@ -201,7 +201,7 @@ Phases, one JSON line each:
               (16,522 images of 702 ids at 256x128, on disk) with the
               dense search plan, so K6 ranks and K7 sums (the "auto" plan
               takes the top-S min-sum above 15,000 rows), then
-              `train_continual` for one epoch over every fourth record
+              `train_continual` for one epoch over every twelfth record
               of the merged split (CONTINUAL_EVERY, a cut for the
               clock): the
               clusters, the Jaccard's seconds, peak memory, and the K6/K7
@@ -222,7 +222,7 @@ The torchvision-style ResNets, in the same run:
               fps, stage split and
               launches (K1 only under --int8, zeroed just before each run);
  18. embed    baseline and agw (non-local `w_bn` non-zero) in bf16, card
-              against CPU on 16 crops; the `--int8` embed of each of the
+              against CPU on 8 crops; the `--int8` embed of each of the
               three against its f32 embed on the card, with baseline's K1
               launches in one embed call;
  19. retrieval `--backbone agw --int8` on phase 6's split (D = 2,799):
@@ -230,7 +230,7 @@ The torchvision-style ResNets, in the same run:
               against their plain versions on that run's operands and timed
               (phase 9 without its full N x N call);
  20. train    `train_main --backbone resnet50`, one epoch of a 64-id tree
-              (17 steps of 64 at 256x128, bf16): step period, images/s,
+              (8 steps of 64 at 256x128, bf16): step period, images/s,
               peak memory; then phase 14's card-vs-CPU step for resnet50;
               last, five traced steps (`step_profile`): launches, device
               time and the idle share of a step, after one step under the
@@ -244,7 +244,7 @@ CARes18 (triplet attention) and EMARes18 (EMA), in the same run:
  22. track    `--backbone cares18`, then `emares18`, as phase 17: bf16 then
               `--int8`, fps, stage split and launches: K1 exactly 10 an
               embed call, K2 none;
- 23. embed    both in bf16, card against CPU on 16 crops, and each
+ 23. embed    both in bf16, card against CPU on 8 crops, and each
               `--int8` embed against its f32 embed on the card, as phase
               18;
  24. train    `train_main --backbone cares18 --renorm` on phase 20's tree
@@ -259,7 +259,7 @@ OSNet and PLR-OSNet, in the same run:
               `--int8`, fps, the crop_embed ms a frame and the stage
               split; K1 and K2 launch 0 times (OSNet's 3x3 convs are
               depthwise: the int8 route sums them exactly in an f32 conv);
- 26. embed    both in bf16, card against CPU on 16 crops (cosine >= 0.999
+ 26. embed    both in bf16, card against CPU on 8 crops (cosine >= 0.999
               a row; PLR-OSNet embeds its 2,560-wide feature alone), and
               each `--int8` embed against its f32 embed on the card
               (cosine >= 0.99, no K1 or K2 launch);
@@ -284,7 +284,7 @@ ViT-t with SIE and Swin-T v1 / v2 at 448x224, in the same run:
               memory; K1 and K2 launch 0 times (no conv of theirs is 3x3
               with 128-multiple channels); the embed takes the crops in
               slices of `cli.TRANSFORMER_EMBED_SLICE`;
- 30. embed    the three in bf16 at full width, card against CPU on 16
+ 30. embed    the three in bf16 at full width, card against CPU on 8
               crops of 448x224 (cosine >= 0.999 a row), and each `--int8`
               embed against its f32 embed on the card (cosine >= 0.99, no
               K1 or K2 launch), as phase 26;
@@ -304,9 +304,9 @@ ViT-t with SIE and Swin-T v1 / v2 at 448x224, in the same run:
               card-vs-CPU f32 step of each at a batch of 8 with dropout 0,
               the limits as phase 28's (`spread`);
  33. video    `cli.video_main` at its defaults (bs 8, seq_len 10,
-              256x128, bf16, the 3-D video_resnet50) for one epoch of 8
+              256x128, bf16, the 3-D video_resnet50) for one epoch of 4
               steps on a synthetic MOT16-shaped tree of two sequences of
-              1080p JPEG frames with 64 pedestrian tracks and a distractor
+              1080p JPEG frames with 32 pedestrian tracks and a distractor
               (`write_mot_tree`): the step period on the device's clock,
               the loader's seconds a step (whole-frame JPEG decode, as the
               reference's loader), peak memory, finite losses; then the
@@ -320,6 +320,38 @@ ViT-t with SIE and Swin-T v1 / v2 at 448x224, in the same run:
               256 x 128, card against CPU, cosine >= 0.999 a row
               (`phase_video_card_vs_cpu`). No kernel of K1-K7 lies on the
               video path (3-D convs, no --int8).
+The GAN programs and detector training, in the same run; no
+kernel of K1-K7 lies on these paths (their launches counted, 0):
+ 35. gan      `cli.gan_main` at its defaults (the spectral DCGAN, nz 100,
+              ngf = ndf = 64, batch 64, 128x64, Adam b1 0.5) with --groups
+              2 and --n_images 64, one epoch (the default is 120), on a
+              synthetic Market tree of 72 ids in two colour families
+              (`write_gan_tree`: 1,008 train + gallery images, two
+              k-means groups of about 504, 7 batches each): group sizes,
+              steps, the step period on the device's clock, peak memory,
+              the 64 images and 2 checkpoints written (the last read back
+              by `load_gan_state`); the step alone (median of 5 after 2),
+              one step under the sync debug mode "error", launches,
+              device time and idle share (`gan_step_profile`);
+ 36. gan      `gan_main --vae --wasserstein` (the VAE, zdim 128, and the
+              Wasserstein D with its gradient penalty), one epoch at
+              batch 64 (15 steps), as phase 35;
+ 37. gan      `cli.lsro_main` (baseline, 72 classes, batch 32, SGD) over
+              the tree's 576 train images and phase 35's 64 generated
+              ones, one epoch (20 steps): step period, peak memory, the
+              epoch's loss and real-only accuracy, the `.npz` written;
+              the step alone on a batch drawn on the card, as phase 35;
+ 38. detector `train_detector` at its defaults (det_hw 288x512, base 32,
+              batch 8, Adam) on 16 1080p frames of phase 4's scene with
+              their 50 boxes each, one epoch (2 steps); the step alone,
+              the sync check, launches, device time, idle share;
+ 39. gan card vs cpu: one f32 step of each of the four trainers from one
+              state on the card and on the CPU, TF32 off (the DCGAN step
+              with G's update at full width, the VAE-GAN step with the
+              gradient penalty, `train_lsro_baseline`, `train_detector`),
+              under phase 14's limits or twice the CPU's own spread
+              between its two convolution algorithms
+              (`phase_gan_card_vs_cpu`).
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -405,13 +437,13 @@ N_QUERY, N_GALLERY, N_IDS, N_CAMS, N_CLASSES = 3368, 19732, 750, 6, 751
 # S streams, `n_real` boxes a frame in `max_dets` slots; each stream's crop
 # budget is chunk x n_real, so a chunk embeds S x chunk x n_real crops;
 # `n_chunks` chunks a run, all but the first timed (a few seconds; cut
-# from 4 and 6 in PR 15 for the smoke's time limit)
+# from 4 and 6 to 3 and 4, then to 2 and 3, for the smoke's time limit)
 STREAM_POINTS = {
     "multistream8": dict(streams=8, chunk=64, hw=(480, 640), n_real=16,
-                         max_dets=32, max_tracks=64, n_chunks=3),
+                         max_dets=32, max_tracks=64, n_chunks=2),
     "mot16_load_multistream8": dict(streams=8, chunk=8, hw=(1080, 1920),
                                     n_real=50, max_dets=64,
-                                    max_tracks=128, n_chunks=4)}
+                                    max_tracks=128, n_chunks=3)}
 
 RESULTS = {}
 # the script's start, for each line's seconds since it (`t_s`)
@@ -2106,9 +2138,10 @@ def phase_artifact(gallery, tmp, dev):
 
 # the training operating point: Market-1501's train split (751 ids; its
 # 12,936 images as 17 an id), SERes18-IBN at 256x128 in bf16, PK batches
-# of 64 = 16 ids x 4, one epoch (two until PR 14; cut for the smoke's
-# time limit)
-TRAIN_IDS, TRAIN_PER_ID, TRAIN_EPOCHS = 751, 17, 1
+# of 64 = 16 ids x 4, one epoch (of two before); the depth cut for the
+# smoke's time limit: 8 images an id (6,008, 17 before), two PK groups
+# of 4 an id, half the epoch's steps (93; the loss is logged every 50)
+TRAIN_IDS, TRAIN_PER_ID, TRAIN_EPOCHS = 751, 8, 1
 # the continual phase's target: DukeMTMC-reID's train split, 16,522 images
 # of 702 ids (376 ids of 24 images and 326 of 23)
 DUKE_IDS, DUKE_COUNTS = 702, [24] * 376 + [23] * 326
@@ -2541,7 +2574,9 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
                res["dcc_rel"]) <= 1e-3, res
 
 
-CONTINUAL_EVERY = 4
+# the continual epoch's depth cut for the smoke's time limit: every
+# CONTINUAL_EVERY-th record of the merged split (4 before)
+CONTINUAL_EVERY = 12
 
 
 def phase_continual(state, cfg, source, tmp):
@@ -2810,10 +2845,14 @@ def phase_track_zoo(tmp, scene, chunk, backbone="resnet50",
     return runs["int8"]
 
 
+# crops of the zoo's card-vs-CPU embeds (16 before: the smoke's clock)
+EMBED_CROPS = 8
+
+
 def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
                     label="embed zoo", int8_cosine=0.95, hw=(256, 128)):
     """Eval mode, card against CPU: the `card_vs_cpu` backbones (agw with
-    its non-local `w_bn` non-zero) in bf16 embed the same 16 crops on
+    its non-local `w_bn` non-zero) in bf16 embed the same EMBED_CROPS crops on
     both, [feat || logits] held by cosine (>= 0.999 a row) and by the
     largest difference (within 2^-5 of the largest magnitude). Then the
     `--int8` embed (the track CLI's `build_embed`) against the f32 embed
@@ -2829,7 +2868,7 @@ def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
     from reid_tpu_torch.ops import _lib
     from reid_tpu_torch.utils.flax_bridge import save_npz, flax_variables
 
-    crops = torch.randn((16, *hw, 3),
+    crops = torch.randn((EMBED_CROPS, *hw, 3),
                         generator=torch.Generator().manual_seed(1))
     res = {}
 
@@ -2885,7 +2924,7 @@ def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
                                 if k.startswith("conv3x3_s8")))
             del model, fn
     torch.cuda.empty_cache()
-    emit(label, crops=16, **res)
+    emit(label, crops=EMBED_CROPS, **res)
     for backbone in card_vs_cpu:
         r = res[f"{backbone}_card_vs_cpu"]
         assert r["min_cosine"] >= 0.999 and r["max_rel_err"] <= 2 ** -5, r
@@ -2900,7 +2939,7 @@ def phase_zoo_embed(card_vs_cpu=("baseline", "agw"), int8_counts=None,
 def phase_train_zoo(tmp, backbone="resnet50", renorm=False):
     """`cli.train_main --backbone backbone [--renorm]` on the card: one
     epoch of a synthetic Market-shaped tree of ZOO_TRAIN_IDS ids x
-    TRAIN_PER_ID images (17 steps of --bs 64 --instance 4, bf16,
+    TRAIN_PER_ID images (8 steps of --bs 64 --instance 4, bf16,
     256x128), written once for the phases that train on it: step period
     on the device's clock, images/s, peak memory, the logged loss; with
     `renorm`, every BatchRenorm's `steps` counter at the steps taken. The
@@ -3135,7 +3174,7 @@ def phase_train_transformer(backbone, instances):
 # sequence) and one distractor track (class 7) a sequence, one epoch of
 # VIDEO_IDS / 8 steps (of the CLI's 25); the step alone on one kept batch,
 # VIDEO_WARM untimed then VIDEO_STEPS timed
-VIDEO_IDS, VIDEO_FRAMES, VIDEO_WARM, VIDEO_STEPS = 64, 24, 3, 10
+VIDEO_IDS, VIDEO_FRAMES, VIDEO_WARM, VIDEO_STEPS = 32, 24, 3, 10
 
 
 def write_mot_tree(root, n_ids=VIDEO_IDS, n_frames=VIDEO_FRAMES, seed=0):
@@ -3208,7 +3247,7 @@ def conv_flops(model, x):
 
 def phase_video_train(tmp):
     """`cli.video_main` itself at its defaults (bs 8, seq_len 10, 256x128,
-    bf16, the 3-D video_resnet50 with 64 classes) for one epoch of 8 steps
+    bf16, the 3-D video_resnet50 with 32 classes) for one epoch of 4 steps
     on a synthetic MOT16-shaped tree (`write_mot_tree`); the loader cuts
     each crop from its whole decoded 1080p JPEG frame, as the reference
     does. Reports the step period on the device's clock (CUDA events
@@ -3433,6 +3472,469 @@ def phase_video_card_vs_cpu():
     assert min(cos) >= 0.999, res
 
 
+# the GAN tree (phases 35-37): GAN_IDS ids of GAN_TRAIN train and
+# GAN_GALLERY gallery images at 128x64 (1,008 train + gallery images),
+# the ids in two colour families, so that the two k-means groups of
+# `gan_main --groups 2` hold about 504 each: 7 batches of 64 a group in
+# its one epoch (`--epochs 1`: the depth cut; the default is 120)
+GAN_IDS, GAN_TRAIN, GAN_GALLERY = 72, 8, 6
+# the detector run (phase 38): frames of phase 4's scene
+DET_TRAIN_FRAMES = 16
+
+
+def write_gan_tree(root, n_ids=GAN_IDS, per_train=GAN_TRAIN,
+                   per_gallery=GAN_GALLERY, seed=0):
+    """A Market-1501-layout JPEG tree at 128x64 (bounding_box_train,
+    query, bounding_box_test): each identity two colours (upper, lower
+    half) with +-25 of noise a pixel, even ids warm (red high, blue low)
+    and odd ids cool; returns the root."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for pid in range(1, n_ids + 1):
+        c = rng.integers(40, 120, (2, 3))
+        c[:, 0 if pid % 2 == 0 else 2] += 120
+        for sub, n in (("bounding_box_train", per_train), ("query", 1),
+                       ("bounding_box_test", per_gallery)):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+            for k in range(n):
+                img = rng.integers(-25, 26, (128, 64, 3)) + np.repeat(
+                    c, 64, axis=0)[:, None, :]
+                jobs.append((os.path.join(
+                    root, sub, f"{pid:04d}_c{k % 6 + 1}s1_{k:06d}_00.jpg"),
+                    np.clip(img, 0, 255).astype(np.uint8)))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda j: Image.fromarray(j[1]).save(j[0]), jobs))
+    return root
+
+
+class StepClock:
+    """Wraps a step maker: a CUDA event after each step of the run (the
+    step period on the device's clock, no synchronisation), the number
+    of steps, and the last step's function and arguments for a later
+    trace."""
+
+    def __init__(self):
+        self.events, self.kept = [], {}
+
+    def wrap(self, make):
+        import torch
+
+        def make_step(*a, **k):
+            made = make(*a, **k)
+            init, step = made if isinstance(made, tuple) else (None, made)
+
+            def timed(state, *args):
+                out = step(state, *args)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                self.kept.update(step=step, state=state, args=args)
+                return out
+            return (init, timed) if init else timed
+        return make_step
+
+    def periods(self):
+        self.events[-1].synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events,
+                                                  self.events[1:])]
+
+
+def gan_step_profile(step, state, args, name, reps=3):
+    """The kept step alone (median of 5 after 2), one more under the
+    sync debug mode "error" (no host read, no host copy), and `reps`
+    traced steps: launches and device ms a step, the idle share."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step(state, *args)
+    ms = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(state, *args)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step(state, *args)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    device_ms = sum(k[2] for k in kernels) / reps
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
+        for kname, n, kms in kernels:
+            f.write(f"{kms / reps:10.4f} ms {n / reps:8.1f}x  "
+                    f"{kname[:140]}\n")
+    med = statistics.median(ms)
+    return dict(step_ms_median=med, step_ms_min=min(ms),
+                step_ms_max=max(ms), host_syncs_in_step=0,
+                launches_per_step=sum(k[1] for k in kernels) / reps,
+                device_ms_per_step=device_ms,
+                device_idle_share=1 - device_ms / med)
+
+
+def phase_gan(tmp):
+    """Phases 35-37 on one GAN tree (`write_gan_tree`): `cli.gan_main` at
+    its defaults (spectral DCGAN, nz 100, ngf = ndf = 64, batch 64,
+    128x64) with --groups 2 (colour-pyramid k-means) and --n_images 64,
+    one epoch; `gan_main --vae --wasserstein` (the VAE, zdim 128, and the
+    Wasserstein D with its gradient penalty), one epoch at batch 64; and
+    `cli.lsro_main` (baseline, batch 32) over the train split and the 64
+    generated images, one epoch. For each: group sizes, steps, the step
+    period on the device's clock, peak memory, the images and
+    checkpoints written; then its step alone, the sync check, launches,
+    device time and idle share (`gan_step_profile`). K1-K7 launch 0
+    times on these paths (counted)."""
+    import glob
+    import statistics
+
+    import torch
+    from reid_tpu_torch import cli, gan
+    from reid_tpu_torch.gan import driver
+    from reid_tpu_torch.ops import launch_counts, reset_launch_counts
+    from reid_tpu_torch.train import optim
+
+    root = os.path.join(tmp, "gan_market")
+    t0 = time.perf_counter()
+    write_gan_tree(root)
+    data_s = time.perf_counter() - t0
+    out_dir, ckpt_dir = os.path.join(tmp, "gen"), os.path.join(tmp, "ckpt")
+    results = {}
+
+    # 35: DCGAN per appearance group
+    clock, groups = StepClock(), {}
+    get_groups = gan.get_groups
+
+    def keep_groups(*a, **k):
+        groups["labels"] = get_groups(*a, **k)
+        return groups["labels"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(driver, "make_dcgan_steps", clock.wrap), \
+            patched(gan, "get_groups", lambda _: keep_groups):
+        imgs = cli.gan_main(["--root", root, "--epochs", "1", "--groups",
+                             "2", "--n_images", "64", "--out", out_dir,
+                             "--ckpt_dir", ckpt_dir], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    sizes = np.bincount(groups["labels"], minlength=2).tolist()
+    written = sorted(glob.glob(os.path.join(out_dir, "gen_*.jpg")))
+    ckpts = sorted(glob.glob(os.path.join(ckpt_dir, "gan_group*.npz")))
+    assert imgs.shape == (64, 128, 64, 3) and np.isfinite(imgs).all()
+    assert len(written) == 64 and len(ckpts) == 2, (written, ckpts)
+    assert min(sizes) >= 6 * 64, sizes
+    state = driver.load_gan_state(ckpts[-1], device="cuda")
+    assert state.step == len(clock.events), (state.step, clock.events)
+    period = clock.periods()
+    step, st, args = (clock.kept[k] for k in ("step", "state", "args"))
+    prof = gan_step_profile(step, st, args, "dcgan_step")
+    results["gan dcgan"] = dict(
+        groups=sizes, steps=len(clock.events), images=len(written),
+        checkpoints=[os.path.basename(c) for c in ckpts], wall_s=wall,
+        data_s=data_s, step_period_ms_median=statistics.median(period),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_k1_k7=counts, **prof)
+    emit("gan dcgan", nz=100, ngf=64, ndf=64, batch=64, hw=[128, 64],
+         **results["gan dcgan"])
+    assert not counts, counts
+
+    # 36: the VAE-GAN, Wasserstein with the gradient penalty
+    clock = StepClock()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(driver, "make_vaegan_steps", clock.wrap):
+        imgs = cli.gan_main(["--root", root, "--epochs", "1", "--vae",
+                             "--wasserstein", "--n_images", "64", "--out",
+                             os.path.join(tmp, "gen_vae")], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert imgs.shape == (64, 128, 64, 3) and np.isfinite(imgs).all()
+    assert len(clock.events) >= 2, clock.events
+    period = clock.periods()
+    step, st, args = (clock.kept[k] for k in ("step", "state", "args"))
+    prof = gan_step_profile(step, st, args, "vaegan_gp_step")
+    emit("gan vae wasserstein", zdim=128, batch=64, steps=len(clock.events),
+         wall_s=wall, step_period_ms_median=statistics.median(period),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches_k1_k7=counts, **prof)
+    assert not counts, counts
+
+    # 37: the LSRO baseline over real and generated images
+    events, kept = [], {}
+    sgd_apply = optim.SGD.apply
+
+    def timed_apply(self, params, grads, state):
+        sgd_apply(self, params, grads, state)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    optim.SGD.apply = timed_apply
+    try:
+        variables, history = cli.lsro_main(
+            ["--root", root, "--gen_dir", out_dir, "--epochs", "1",
+             "--ckpt", os.path.join(tmp, "lsro.npz")], device="cuda")
+    finally:
+        optim.SGD.apply = sgd_apply
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    n_real = GAN_IDS * GAN_TRAIN
+    assert len(events) == (n_real + 64) // 32, len(events)
+    assert np.isfinite(history[0]["loss"]) and 0 <= history[0]["acc"] <= 1
+    assert os.path.exists(os.path.join(tmp, "lsro.npz"))
+    events[-1].synchronize()
+    period = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the step alone, as the driver builds it (the model in train mode,
+    # the LSRO loss, SGD), on a batch of 32 drawn on the card
+    from reid_tpu_torch.gan.train import lsro_loss
+    from reid_tpu_torch.models import build_model
+    model = build_model("baseline", GAN_IDS, device="cuda")
+    params = list(model.parameters())
+    tx = optim.SGD(1e-3, momentum=0.9)
+    opt = tx.init(params)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = (torch.rand((32, 128, 64, 3), generator=g, device="cuda") * 2
+             - 1, torch.randint(0, GAN_IDS, (32,), generator=g,
+                                device="cuda"),
+             (torch.arange(32, device="cuda") % 10 == 0).float())
+
+    def step(_, imgs, labs, flgs):
+        loss = lsro_loss(model(imgs, train=True)[1], labs, flgs)
+        tx.apply(params, torch.autograd.grad(loss, params), opt)
+        return loss
+    prof = gan_step_profile(step, None, batch, "lsro_step")
+    emit("gan lsro", backbone="baseline", classes=GAN_IDS, batch=32,
+         real=n_real, generated=64, steps=len(events), wall_s=wall,
+         step_period_ms_median=statistics.median(period),
+         peak_mem_gb=peak, history=history, launches_k1_k7=counts, **prof)
+    assert not counts, counts
+
+
+def phase_train_detector():
+    """Phase 38: `train_detector` at its defaults (det_hw 288x512, base
+    32, batch 8, Adam 1e-3) on DET_TRAIN_FRAMES 1080p frames of phase 4's
+    scene with their 50 boxes each, one epoch (2 steps): the losses
+    (finite), the step period, peak memory, K1-K7 launches (0); then the
+    step alone, the sync check, launches, device time and idle share,
+    on the run's last batch (resized on the device, as in the run)."""
+    import torch
+    from reid_tpu_torch.models.detector import (detection_loss,
+                                                make_centernet_targets)
+    from reid_tpu_torch.ops import launch_counts, reset_launch_counts
+    from reid_tpu_torch.tracking.pipeline import resize_bilinear_matmul
+    from reid_tpu_torch.train import detector_train
+    from reid_tpu_torch.utils.quantize import inv_f32
+
+    frames, boxes = scene(DET_TRAIN_FRAMES)
+    valid = np.ones(boxes.shape[:2], bool)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model, _, losses = detector_train.train_detector(
+        frames, boxes, valid, epochs=1, log_fn=lambda *_: None,
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert len(losses) == 1 and np.isfinite(losses[0]), losses
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    dev = torch.device("cuda")
+    params = list(model.parameters())
+    tx = detector_train.Adam(1e-3)
+    opt = tx.init(params)
+    sx, sy = 512 / frames.shape[2], 288 / frames.shape[1]
+    imgs = torch.from_numpy(frames[:8]).to(dev)
+    tl = torch.from_numpy((boxes[:8] * [sx, sy, sx, sy]).astype(
+        np.float32)).to(dev)
+    vm = torch.ones(tl.shape[:2], dtype=torch.bool, device=dev)
+
+    def step(_, imgs, tl, vm):
+        x = resize_bilinear_matmul(imgs.to(torch.float32)
+                                   * inv_f32(255.0), (288, 512))
+        loss = detection_loss(model(x, train=True),
+                              *make_centernet_targets(tl, vm, (288, 512)))
+        tx.apply(params, torch.autograd.grad(loss, params), opt)
+        return loss
+    prof = gan_step_profile(step, None, (imgs, tl, vm), "detector_step")
+    emit("train detector", det_hw=[288, 512], base=32, batch=8,
+         frames=DET_TRAIN_FRAMES, frame_hw=list(frames.shape[1:3]),
+         steps=DET_TRAIN_FRAMES // 8, losses=losses, wall_s=wall,
+         peak_mem_gb=peak, launches_k1_k7=counts, **prof)
+    assert not counts, counts
+
+
+def phase_gan_card_vs_cpu():
+    """Phase 39: one step of each of the slice's trainers from one state
+    on the card and on the CPU in f32, TF32 off: the DCGAN step with G's
+    update (spectral G and D at full width, batch 8, step 2 of the
+    schedule, the same z), the VAE-GAN step with the Wasserstein D and
+    its gradient penalty (batch 4, the same eps), `train_lsro_baseline`
+    (baseline at 128x64, 8 real and 8 generated images, one SGD step) and
+    `train_detector` (base 32 at 288x512, 2 frames of 576x1024, one Adam
+    step), each from a seeded init. Phase 14's limits: losses 1e-4
+    relative; the gradient (Adam's first moment after its step, SGD's
+    trace) within 1e-3 of its norm; the update at a cosine >= 0.9994 and
+    within 3.5% of its norm; statistics (BatchNorm's, the spectral u and
+    sigma) within 1e-3 of each tensor's largest magnitude; or twice the
+    CPU's own spread between its two convolution algorithms (oneDNN and
+    ATen's) where that is wider, as phase 28 does."""
+    import copy
+
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.gan import driver, models, train as gtrain
+    from reid_tpu_torch.train import detector_train
+    from reid_tpu_torch.train.optim import Adam
+
+    gen0 = models.Generator().init_weights(torch.Generator().manual_seed(0))
+    disc0 = models.Discriminator().init_weights(
+        torch.Generator().manual_seed(1))
+    vae0 = models.VAE().init_weights(torch.Generator().manual_seed(2))
+    wdisc0 = models.Discriminator(wasserstein=True).init_weights(
+        torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    real = torch.rand((8, 128, 64, 3), generator=g) * 2 - 1
+    z, z2 = torch.randn((8, 100), generator=g), torch.randn((8, 100),
+                                                            generator=g)
+    eps, gp_eps = torch.randn((4, 128), generator=g), torch.rand(
+        (4, 1, 1, 1), generator=g)
+    rng = np.random.default_rng(5)
+    real16 = rng.integers(0, 255, (16, 128, 64, 3), np.uint8)
+    frames, boxes = scene(2, hw=(576, 1024), seed=6)
+
+    def flat(ts):
+        return torch.cat([t.detach().double().cpu().ravel() for t in ts])
+
+    def dcgan(dev):
+        gen, disc = copy.deepcopy(gen0).to(dev), copy.deepcopy(disc0).to(dev)
+        start = flat(list(gen.parameters()) + list(disc.parameters()))
+        state, g_tx, d_tx = gtrain.create_gan_state(gen, disc)
+        state.step = 2                       # G's step and the EMA follow
+        state, m = gtrain.make_dcgan_steps(g_tx, d_tx)(
+            state, real.to(dev), z.to(dev), z2.to(dev))
+        return dict(loss=float(m["d_loss"]) + float(m["g_loss"]),
+                    grad=flat(state.g_opt["mu"] + state.d_opt["mu"]),
+                    update=flat(list(gen.parameters())
+                                + list(disc.parameters())) - start,
+                    stats=[b.cpu() for b in list(gen.buffers())
+                           + list(disc.buffers())])
+
+    def vaegan(dev):
+        vae, disc = copy.deepcopy(vae0).to(dev), copy.deepcopy(wdisc0).to(dev)
+        start = flat(list(vae.parameters()) + list(disc.parameters()))
+        init, step = gtrain.make_vaegan_steps(
+            Adam(2e-4, b1=0.5), Adam(2e-4, b1=0.5), wasserstein=True)
+        state, m = step(init(vae, disc), real[:4].to(dev), eps.to(dev),
+                        gp_eps.to(dev))
+        return dict(loss=float(m["vae_loss"]) + float(m["d_loss"]),
+                    grad=flat(state.vae_opt["mu"] + state.d_opt["mu"]),
+                    update=flat(list(vae.parameters())
+                                + list(disc.parameters())) - start,
+                    stats=[b.cpu() for b in list(vae.buffers())
+                           + list(disc.buffers())])
+
+    def lsro(dev):
+        from reid_tpu_torch.models import build_model
+        from reid_tpu_torch.utils.flax_bridge import torch_state_dict
+        start = flat(build_model("baseline", GAN_IDS, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+                     .parameters())
+        variables, hist = driver.train_lsro_baseline(
+            real16[:8], np.arange(8), real16[8:], GAN_IDS, epochs=1,
+            batch_size=16, log_fn=lambda *_: None, device=dev)
+        sd = torch_state_dict(variables)
+        model = build_model("baseline", GAN_IDS, device="cpu")
+        names = [n for n, _ in model.named_parameters()]
+        update = flat([sd[n] for n in names]) - start
+        return dict(loss=hist[0]["loss"], grad=update, update=update,
+                    stats=[sd[n] for n, _ in model.named_buffers()])
+
+    def detector(dev):
+        from reid_tpu_torch.models.detector import CenterNetLite
+        start = flat(CenterNetLite().init_weights(
+            torch.Generator().manual_seed(0)).parameters())
+        model, _, losses = detector_train.train_detector(
+            frames, boxes, np.ones(boxes.shape[:2], bool), epochs=1,
+            batch_size=2, log_fn=lambda *_: None, device=dev)
+        update = flat(model.parameters()) - start
+        return dict(loss=losses[0], grad=None, update=update,
+                    stats=[b.cpu() for b in model.buffers()])
+
+    def apart(got, want):
+        u_g, u_c = got["update"], want["update"]
+        out = dict(loss_rel=abs(got["loss"] - want["loss"])
+                   / abs(want["loss"]),
+                   update_cosine=float(u_g @ u_c / (u_g.norm() * u_c.norm())),
+                   update_rel_norm=float((u_g - u_c).norm() / u_c.norm()),
+                   stats_rel=max(float((a.double() - b.double()).abs().max()
+                                       / max(b.double().abs().max(), 1e-30))
+                                 for a, b in zip(got["stats"],
+                                                 want["stats"])))
+        if want["grad"] is not None:
+            out["grad_rel_norm"] = float((got["grad"] - want["grad"]).norm()
+                                         / want["grad"].norm())
+        return out
+
+    res = {}
+    for name, fn in (("dcgan", dcgan), ("vaegan_gp", vaegan),
+                     ("lsro", lsro), ("detector", detector)):
+        out = {}
+        t0 = time.perf_counter()
+        with full_f32():
+            for run, mkldnn in (("cpu", True), ("cuda", True),
+                                ("cpu_aten", False)):
+                with torch.backends.mkldnn.flags(enabled=mkldnn):
+                    out[run] = fn("cuda" if run == "cuda" else "cpu")
+        got, spread = apart(out["cuda"], out["cpu"]), apart(
+            out["cpu_aten"], out["cpu"])
+        limits = dict(loss_rel=max(1e-4, 2 * spread["loss_rel"]),
+                      update_cosine=min(0.9994, 1 - 2 * (
+                          1 - spread["update_cosine"])),
+                      update_rel_norm=max(0.035,
+                                          2 * spread["update_rel_norm"]),
+                      stats_rel=max(1e-3, 2 * spread["stats_rel"]))
+        if "grad_rel_norm" in got:
+            limits["grad_rel_norm"] = max(1e-3, 2 * spread["grad_rel_norm"])
+        res[name] = dict(card=got, cpu_spread=spread, limits=limits,
+                         seconds=time.perf_counter() - t0)
+    emit("gan card vs cpu", **res)
+    for name, r in res.items():
+        got, lim = r["card"], r["limits"]
+        assert got["loss_rel"] <= lim["loss_rel"], (name, r)
+        assert got.get("grad_rel_norm", 0) <= lim.get("grad_rel_norm", 1), \
+            (name, r)
+        assert got["update_cosine"] >= lim["update_cosine"], (name, r)
+        assert got["update_rel_norm"] <= lim["update_rel_norm"], (name, r)
+        assert got["stats_rel"] <= lim["stats_rel"], (name, r)
+
+
 def set_launches(rows, sites):
     """Each K1/K2 row's launches at its call site in one run of its path."""
     for row in rows:
@@ -3640,6 +4142,11 @@ def main():
         phase_video_train(tmp)
         torch.cuda.empty_cache()
         phase_video_card_vs_cpu()
+        # phases 35-39: the GAN programs, detector training, card vs CPU
+        torch.cuda.empty_cache()
+        phase_gan(tmp)
+        phase_train_detector()
+        phase_gan_card_vs_cpu()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6/K7 on the continual run: its launches, and each held against its

@@ -1,8 +1,9 @@
 """Command-line entries of the port: tracking, retrieval evaluation,
-image training and video training.
+image training, video training and the GAN's two programs.
 
 Counterparts of `reid_tpu/cli.py:track_main`, `inference_main`,
-`train_main` and `video_main` with the same flags. Each runs on the card;
+`train_main`, `video_main`, `gan_main` and `lsro_main` with the same
+flags. Each runs on the card;
 `device="cpu"` runs the same program on the CPU with the kernels' plain
 versions.
 
@@ -56,6 +57,16 @@ versions.
     bf16, the hybrid loss and MADGRAD without a clip
     (`train/video_train.py`); prints the final loss and returns the flax
     variable tree. One device.
+  * `gan_main`: synthetic person images from a Market-style tree (train
+    + gallery, 128x64): DCGAN per k-means appearance group (`--groups`,
+    the colour-pyramid representation, or a local torchvision ResNet-50
+    `.pt` with `--embed_ckpt`; one EMA and one `gan_group{g}.npz`
+    checkpoint under `--ckpt_dir` a group) or the VAE-GAN (`--vae
+    [--wasserstein]`); writes `--n_images` gen_*.jpg to `--out`
+    (`gan/driver.py`). One device.
+  * `lsro_main`: the `--backbone` classifier (baseline) on the real train
+    split + `--gen_dir`'s gen_* images under the LSRO loss, SGD with
+    momentum 0.9; `--ckpt` writes the flax variable tree as `.npz`.
 
 `--backbone` of the three image CLIs takes the image names
 `models.build_model` has (seres18, cares18, emares18, baseline, resnet50,
@@ -75,6 +86,9 @@ they train through `video_main`. Other names raise KeyError.
         --epochs 60 --export reid.pt2
     python -m reid_tpu_torch.video_reid_train \
         --gt_paths MOT16/train/MOT16-02/gt/gt.txt --prefix MOT16/train/
+    python -m reid_tpu_torch.synthetic_main --root market1501 --groups 2
+    python -m reid_tpu_torch.train_baseline --root market1501 \
+        --gen_dir synthetic_images
 """
 
 from __future__ import annotations
@@ -745,6 +759,132 @@ def video_main(argv=None, device: Optional[str] = "cuda"):
                                     seq_len=args.seq_len, device=device)
     print(f"video training complete; final loss {losses[-1]:.4f}")
     return variables
+
+
+def gan_main(argv=None, device: Optional[str] = "cuda"):
+    """Synthetic images (ref gan/synthetic_main.py main :454-506), the flags
+    and defaults of `reid_tpu/cli.py:gan_main`: DCGAN per appearance
+    group or the VAE-GAN, then `--n_images` samples written as
+    gen_{i:05d}.jpg under `--out`; returns them, (n, 128, 64, 3) in
+    [-1, 1]."""
+    p = argparse.ArgumentParser("synthetic_main")
+    p.add_argument("--root", default="data")
+    p.add_argument("--bs", type=int, default=64)
+    p.add_argument("--epochs", type=int, default=120)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--nz", type=int, default=100)
+    p.add_argument("--ngf", type=int, default=64)
+    p.add_argument("--ndf", type=int, default=64)
+    p.add_argument("--groups", type=int, default=1,
+                   help="k-means appearance groups (ref --k)")
+    p.add_argument("--embed_ckpt", default="",
+                   help="a local torchvision resnet50 .pt for the grouping "
+                        "features (ref kmeans_.py:16-34 ImageNet trunk); "
+                        "default: pooled colour-pyramid representation")
+    p.add_argument("--vae", action="store_true",
+                   help="train the VAE-GAN instead of DCGAN (ref --vae)")
+    p.add_argument("--wasserstein", action="store_true",
+                   help="Wasserstein D + gradient penalty (ref --Wassertein "
+                        "--gp)")
+    p.add_argument("--n_images", type=int, default=1000,
+                   help="synthetic images to sample (ref --instances)")
+    p.add_argument("--ckpt_dir", default="checkpoint",
+                   help="per-group generator checkpoints (ref checkpoint/)")
+    p.add_argument("--out", default="synthetic_images")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    import os
+
+    from PIL import Image
+
+    from .data import Market1501, ReIDDataset
+    from .gan import (generate_group_images, get_groups, sample_vaegan,
+                      train_gan_groups, train_vaegan)
+
+    raw = Market1501(args.root)
+    ds = ReIDDataset(raw.train + raw.gallery, raw.num_train_pids, 128, 64)
+    # uint8 in host RAM (PIL, as the JAX package decodes them); the drivers
+    # scale each batch to [-1, 1] on the device
+    images = np.stack([ds.load_image(i) for i in range(len(ds))])
+    if args.vae:
+        vae, _ = train_vaegan(images, epochs=args.epochs, batch_size=args.bs,
+                              lr=args.lr, wasserstein=args.wasserstein,
+                              seed=args.seed, device=device)
+        imgs = sample_vaegan(vae, args.n_images)
+    else:
+        groups = None
+        if args.groups > 1:
+            embed_fn = None
+            if args.embed_ckpt:
+                from .gan import make_resnet_embed_fn
+                embed_fn = make_resnet_embed_fn(args.embed_ckpt, device)
+            groups = get_groups(images, args.groups, embed_fn=embed_fn,
+                                device=device)
+            print("group sizes:", np.bincount(groups, minlength=args.groups))
+        _, group_states = train_gan_groups(
+            images, groups, k=args.groups, epochs=args.epochs,
+            batch_size=args.bs, nz=args.nz, ngf=args.ngf, ndf=args.ndf,
+            lr=args.lr, seed=args.seed, checkpoint_dir=args.ckpt_dir,
+            device=device)
+        per_group = (args.n_images + args.groups - 1) // args.groups
+        imgs = generate_group_images(group_states, per_group,
+                                     nz=args.nz)[:args.n_images]
+
+    os.makedirs(args.out, exist_ok=True)
+    for i, im in enumerate(((imgs + 1) * 127.5).clip(0, 255).astype("uint8")):
+        Image.fromarray(im).save(os.path.join(args.out, f"gen_{i:05d}.jpg"))
+    print(f"wrote {len(imgs)} images to {args.out}")
+    return imgs
+
+
+def lsro_main(argv=None, device: Optional[str] = "cuda"):
+    """The LSRO baseline (ref gan/train_baseline.py :214-343), the flags and
+    defaults of `reid_tpu/cli.py:lsro_main`: the `--backbone` classifier
+    on the real train split + the gen_* images of `--gen_dir` (resized to
+    64x128); `--ckpt` writes the flax variable tree as `.npz`. Returns
+    (variables, history)."""
+    p = argparse.ArgumentParser("train_baseline")
+    p.add_argument("--root", default="data")
+    p.add_argument("--gen_dir", required=True,
+                   help="directory of generated gen_*.jpg images "
+                        "(ref dcganDataset gen_0000 flags)")
+    p.add_argument("--bs", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=25)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--backbone", default="baseline")
+    p.add_argument("--ckpt", default="",
+                   help="save the trained baseline here (.npz)")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    import glob
+    import os
+
+    from PIL import Image
+
+    from .data import Market1501, ReIDDataset
+    from .gan import train_lsro_baseline
+
+    raw = Market1501(args.root)
+    ds = ReIDDataset(raw.train, raw.num_train_pids, 128, 64)
+    real = np.stack([ds.load_image(i) for i in range(len(ds))])
+    gen_files = sorted(glob.glob(os.path.join(args.gen_dir, "gen_*")))
+    if not gen_files:
+        p.error(f"no gen_* images under {args.gen_dir}")
+    gen = np.stack([
+        np.asarray(Image.open(f).convert("RGB").resize((64, 128)))
+        for f in gen_files])
+    variables, history = train_lsro_baseline(
+        real, ds.labels, gen, num_classes=raw.num_train_pids,
+        epochs=args.epochs, batch_size=args.bs, lr=args.lr,
+        backbone=args.backbone, seed=args.seed, device=device)
+    if args.ckpt:
+        from .utils.flax_bridge import save_npz
+        save_npz(args.ckpt, variables)
+    print(f"final: loss={history[-1]['loss']:.4f} "
+          f"acc={history[-1]['acc']:.4f}")
+    return variables, history
 
 
 if __name__ == "__main__":

@@ -6,8 +6,11 @@ cache in memory, batch decoding of JPEGs by the native libjpeg loader
 and the continual phase's pseudo labels (`add_pseudo`, the per-sample
 flags that `gather` returns as "weights", `set_cross_domain`) and class
 stats. Images decode exactly as the JAX module decodes them, so both
-packages see the same pixels. The h5py image cache is not ported. PIL is
-imported only when used.
+packages see the same pixels. `hdf5_cache=path` keeps the decoded images
+in an HDF5 file as well (ref train_utils.py:26-42): an "images" array
+written lazily on each image's first decode and a "done" mask, so a
+later run (or another dataset on the same file) reads them back instead
+of decoding. PIL and h5py are imported only when used.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ _DECODE_THREADS = 8     # PIL decodes of one batch in flight
 
 class ReIDDataset:
     def __init__(self, records: Sequence[Record], num_pids: int,
-                 height: int = 256, width: int = 128):
+                 height: int = 256, width: int = 128, hdf5_cache: str = ""):
         self.records: List[Record] = list(records)
         self.num_train_pids = num_pids
         self.height = height
@@ -33,6 +36,15 @@ class ReIDDataset:
         self.flags: List[int] = [0] * len(self.records)
         self.cross_domain = False
         self._cache: dict = {}
+        self._h5 = None
+        if hdf5_cache:
+            import h5py
+            self._h5 = h5py.File(hdf5_cache, "a")
+            self._h5ds = self._h5.require_dataset(
+                "images", shape=(len(self.records), height, width, 3),
+                dtype="uint8")
+            self._h5done = self._h5.require_dataset(
+                "done", shape=(len(self.records),), dtype="uint8")
 
     def __len__(self):
         return len(self.records)
@@ -66,21 +78,30 @@ class ReIDDataset:
         return np.asarray([r[3] for r in self.records], np.int64)
 
     def load_image(self, index: int) -> np.ndarray:
-        """uint8 (H, W, 3), resized once (PIL bilinear) and cached."""
+        """uint8 (H, W, 3), resized once (PIL bilinear) and cached: from
+        memory, else from the HDF5 cache where it holds the image, else
+        decoded (and written to the HDF5 cache)."""
         if index in self._cache:
             return self._cache[index]
+        if self._h5 is not None and self._h5done[index]:
+            return self._h5ds[index]
         from PIL import Image
 
         with Image.open(self.records[index][0]) as im:
             arr = np.asarray(im.convert("RGB").resize(
                 (self.width, self.height), Image.BILINEAR), np.uint8)
+        if self._h5 is not None:
+            self._h5ds[index] = arr
+            self._h5done[index] = 1
         self._cache[index] = arr
         return arr
 
     def _decode_batch_native(self, indices: Sequence[int]) -> dict:
         """Batch-decode uncached JPEGs with the C++ loader; {index: array},
-        empty when the native loader is unavailable (then PIL decodes)."""
-        missing = [i for i in indices if i not in self._cache]
+        empty when the native loader is unavailable (then PIL decodes).
+        Images that the HDF5 cache holds are read from it instead."""
+        missing = [i for i in indices if i not in self._cache and not (
+            self._h5 is not None and self._h5done[i])]
         if not missing:
             return {}
         paths = [self.records[i][0] for i in missing]

@@ -183,37 +183,57 @@ def conv_transpose_same_pads(k: int, s: int) -> Tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
-class ConvTranspose2d(nn.Module):
-    """flax `nn.ConvTranspose(ch, (k, k), strides=(s, s), padding="SAME")`
-    with its bias, on NHWC activations.
+def conv_transpose_pads(k: int, s: int, padding: str) -> Tuple[int, int]:
+    """lax's (before, after) padding of the dilated input for "SAME" or
+    "VALID" (k + s - 2 + max(k - s, 0) in all, k - 1 before)."""
+    if padding == "SAME":
+        return conv_transpose_same_pads(k, s)
+    if padding != "VALID":
+        raise ValueError(f"padding {padding!r}: SAME or VALID")
+    return k - 1, s - 1 + max(k - s, 0)
 
-    flax correlates the stride-dilated input, padded by
-    `conv_transpose_same_pads`, with the kernel as it is
+
+def _pair(v) -> Tuple[int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+class ConvTranspose2d(nn.Module):
+    """flax `nn.ConvTranspose(ch, (kh, kw), strides=(sh, sw), padding=
+    "SAME" | "VALID")`, with its bias unless `bias` is False, on NHWC
+    activations; `k` and `s` are an int or a pair.
+
+    flax correlates the stride-dilated input, padded by lax's rule
+    (`conv_transpose_pads`), with the kernel as it is
     (transpose_kernel=False). torch's `conv_transpose2d` correlates it,
     padded by k - 1 - p on both sides, with the kernel flipped in space;
-    so the weight here is flax's kernel (k, k, in, out) flipped in both
-    spatial axes and laid out (in, out, k, k) (`utils/flax_bridge.py`
-    does that), the call takes the smaller of the two paddings, and the
-    rows and columns that the other one adds are cropped. `f32_sum` as
-    `Conv2d`'s."""
+    so the weight here is flax's kernel (kh, kw, in, out) flipped in both
+    spatial axes and laid out (in, out, kh, kw) (`utils/flax_bridge.py`
+    does that), the call takes the smaller of the two paddings of each
+    axis, and the rows and columns that the other one adds are cropped
+    (or, where lax pads past k - 1, zero rows added: the bias alone).
+    `f32_sum` as `Conv2d`'s."""
 
-    def __init__(self, cin: int, cout: int, k: int, s: int,
-                 dtype=torch.float32, f32_sum: bool = False):
+    def __init__(self, cin: int, cout: int, k, s, dtype=torch.float32,
+                 f32_sum: bool = False, padding: str = "SAME",
+                 bias: bool = True):
         super().__init__()
-        self.k, self.s, self.dtype = k, s, dtype
+        self.k, self.s, self.dtype = _pair(k), _pair(s), dtype
+        self.padding = padding
         self.f32_sum = f32_sum
-        self.weight = nn.Parameter(torch.empty(cin, cout, k, k))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.weight = nn.Parameter(torch.empty(cin, cout, *self.k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         cin = self.weight.shape[0]
-        lecun_(self.weight.data, self.k * self.k * cin, generator)
-        nn.init.zeros_(self.bias.data)
+        lecun_(self.weight.data, self.k[0] * self.k[1] * cin, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias.data)
 
     def forward(self, x):
-        pad_a, pad_b = conv_transpose_same_pads(self.k, self.s)
-        crop_a, crop_b = self.k - 1 - pad_a, self.k - 1 - pad_b
-        p = min(crop_a, crop_b)
+        crops = [tuple(k - 1 - p for p in conv_transpose_pads(k, s,
+                                                               self.padding))
+                 for k, s in zip(self.k, self.s)]
+        p = tuple(max(0, min(c)) for c in crops)
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         w = self.weight.to(self.dtype)
         if self.f32_sum and x.device.type == "cpu":
@@ -221,9 +241,15 @@ class ConvTranspose2d(nn.Module):
                                    stride=self.s, padding=p).to(self.dtype)
         else:
             y = F.conv_transpose2d(x, w, stride=self.s, padding=p)
-        h, w = y.shape[2], y.shape[3]
-        y = y[:, :, crop_a - p:h - (crop_b - p), crop_a - p:w - (crop_b - p)]
-        return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)
+        # crop (or zero-pad) each axis to lax's extent
+        (ha, hb), (wa, wb) = [(a - q, b - q) for (a, b), q in zip(crops, p)]
+        if min(ha, hb, wa, wb) < 0:
+            y = F.pad(y, (max(0, -wa), max(0, -wb), max(0, -ha),
+                          max(0, -hb)))
+            ha, hb, wa, wb = (max(0, v) for v in (ha, hb, wa, wb))
+        y = y[:, :, ha:y.shape[2] - hb, wa:y.shape[3] - wb]
+        y = y.permute(0, 2, 3, 1)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -289,15 +315,17 @@ class BatchNorm(nn.Module):
     every axis but the last, mean and E[x^2], var = max(E[x^2] - mean^2,
     0), biased; it normalizes with them and folds the same biased var into
     the running var (ra = m ra + (1 - m) batch). `F.batch_norm` folds the
-    unbiased var and is not used."""
+    unbiased var and is not used. `use_scale` / `use_bias` False drop the
+    scale / the bias, as flax's flags do."""
 
     def __init__(self, c: int, use_bias: bool = True, eps: float = 1e-5,
-                 dtype=torch.float32, momentum: float = 0.9):
+                 dtype=torch.float32, momentum: float = 0.9,
+                 use_scale: bool = True):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(c))
+        self.weight = nn.Parameter(torch.ones(c)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(c)) if use_bias else None
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
@@ -317,7 +345,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         # flax _normalize: y = (x - mean) * (rsqrt(var + eps) * scale) + bias
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        mul = torch.rsqrt(var + self.eps)
+        y = (xf - mean) * (mul if self.weight is None else mul * self.weight)
         if self.bias is not None:
             y = y + self.bias
         return y.to(self.dtype)

@@ -1,4 +1,7 @@
-"""MADGRAD (Defazio & Jelassi 2021), the optimizer of PLR-OSNet's loop
+"""The optimizers written out as `torch._foreach` updates in place: optax's
+Adam moments (`adam_direction`, and `Adam` / `SGD` as the GAN and
+detector drivers use `optax.adam` / `optax.sgd`), and MADGRAD (Defazio &
+Jelassi 2021), the optimizer of PLR-OSNet's loop
 without PK sampling (ref image_reid_train.py:201: lr 0.01, weight decay
 5e-4, momentum 0.9) and of the video loop (ref video_reid_train.py:115:
 lr 1e-4, weight decay 5e-4, momentum 0, no clip).
@@ -103,3 +106,67 @@ class Madgrad:
         torch._foreach_sub_(new, params)
         torch._foreach_add_(params, new)
         state["count"] = k + 1
+
+
+def adam_direction(g: List[torch.Tensor], mu: List[torch.Tensor],
+                   nu: List[torch.Tensor], count: int, b1: float, b2: float,
+                   eps: float) -> List[torch.Tensor]:
+    """optax's `scale_by_adam`: moves the moments mu <- b1 mu + (1 - b1) g
+    and nu <- b2 nu + (1 - b2) g^2 in place and returns mu_hat /
+    (sqrt(nu_hat) + eps), bias-corrected at `count` (the incremented
+    count) in f32 as optax computes 1 - b ** count."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, g, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+    bc1 = float(_F(1) - _F(b1) ** _F(count))
+    bc2 = float(_F(1) - _F(b2) ** _F(count))
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(upd, denom)
+    return upd
+
+
+class Adam:
+    """optax.adam(lr, b1, b2, eps) over a list of parameters, a constant
+    lr; the state is {"count", "mu", "nu"}."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params: List[torch.Tensor]) -> dict:
+        return {"count": 0, "mu": [torch.zeros_like(p) for p in params],
+                "nu": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: dict) -> None:
+        """One update of `params` and `state`, in place."""
+        state["count"] += 1
+        upd = adam_direction(list(grads), state["mu"], state["nu"],
+                             state["count"], self.b1, self.b2, self.eps)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(params, upd)
+
+
+class SGD:
+    """optax.sgd(lr, momentum): the trace t <- g + momentum t (no
+    Nesterov), the update -lr t; the state is {"count", "trace"}."""
+
+    def __init__(self, lr: float, momentum: float = 0.9):
+        self.lr, self.momentum = lr, momentum
+
+    def init(self, params: List[torch.Tensor]) -> dict:
+        return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: dict) -> None:
+        trace = state["trace"]
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, list(grads))
+        torch._foreach_add_(params, torch._foreach_mul(trace, -self.lr))
+        state["count"] += 1

@@ -24,13 +24,12 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from ..config import Config
 from ..losses import HybridLossState, XBMState, init_hybrid_state, init_xbm
 from ..models.factory import TRANSFORMERS
-from .optim import Madgrad, clip_by_global_norm
+from .optim import Madgrad, adam_direction, clip_by_global_norm
 from .schedules import Schedule, warmup_cosine_schedule
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
@@ -68,19 +67,8 @@ class ModelOptimizer:
         lr = self.schedule(state["count"])
         count = state["count"] + 1
         if self.adam:
-            mu, nu = state["mu"], state["nu"]
-            torch._foreach_mul_(mu, _B1)
-            torch._foreach_add_(mu, g, alpha=1.0 - _B1)
-            torch._foreach_mul_(nu, _B2)
-            torch._foreach_addcmul_(nu, g, g, value=1.0 - _B2)
-            f = np.float32
-            bc1 = float(f(1) - f(_B1) ** f(count))
-            bc2 = float(f(1) - f(_B2) ** f(count))
-            denom = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, _EPS)
-            upd = torch._foreach_div(mu, bc1)
-            torch._foreach_div_(upd, denom)
+            upd = adam_direction(g, state["mu"], state["nu"], count, _B1,
+                                 _B2, _EPS)
         elif not self.momentum:
             upd = g
         else:

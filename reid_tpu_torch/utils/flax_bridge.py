@@ -35,7 +35,14 @@ cls token, the position tables (ViT's (1, L + 1, D), Swin v1's
 (2ws - 1, 2ws - 1)), v2's `logit_scale` and the SIE tables keep their
 names and shapes. Swin's SIE table exists in a flax tree only where
 `init` saw a cam: loading a tree with or without it gives the model
-that table or takes it away.
+that table or takes it away. The GAN (`gan/models.py`) adds three
+kinds: flax's `nn.SpectralNorm` keeps a layer's power-iteration `u` and
+`sigma` in `batch_stats` under "<block>/SpectralNorm_<i>/<layer>/kernel/
+{u,sigma}" (one key with slashes in flax's own tree, nested keys after
+an `.npz`), which become the buffers "<block>.<layer>.u" / ".sigma"
+(`SpectralConv2d.sn_index` gives <i> back); an `nn.Embed` table keeps
+its name "embedding"; and its transposed convs cross as above, (4, 2)
+and 6x6 kernels too.
 """
 
 from __future__ import annotations
@@ -133,7 +140,7 @@ def torch_state_dict(variables: Mapping, transposed: Iterable[str] = ()
     sd = {}
     for coll in ("params", "batch_stats"):
         for path, v in flatten(variables.get(coll, {})).items():
-            *mods, leaf = path
+            *mods, leaf = _spectral_path(path)
             # BatchRenorm's step counter stays an integer
             arr = np.asarray(v, np.int32 if leaf == "steps" else np.float32)
             if _is_head_leaf(mods, arr, leaf):
@@ -146,6 +153,17 @@ def torch_state_dict(variables: Mapping, transposed: Iterable[str] = ()
             name = ".".join(mods + [_LEAF.get(leaf, leaf)])
             sd[name] = torch.tensor(arr)
     return sd
+
+
+def _spectral_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
+    """A SpectralNorm statistic's path ("block1", "SpectralNorm_0",
+    "conv1/kernel/u") as the buffer's ("block1", "conv1", "u"); any
+    other path as it is."""
+    parts = "/".join(path).split("/")
+    for i, p in enumerate(parts):
+        if p.startswith("SpectralNorm_") and len(parts) == i + 4:
+            return tuple(parts[:i] + [parts[i + 1], parts[i + 3]])
+    return path
 
 
 def load_flax_variables(model: torch.nn.Module, variables) -> None:
@@ -221,6 +239,7 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
     """{"params": ..., "batch_stats": ...} of `model` as nested dicts of
     f32 numpy arrays in flax naming and layout: the inverse of
     `torch_state_dict`, so `load_flax_variables` reads it back."""
+    from ..gan.models import SpectralConv2d
     from ..models.layers import ConvTranspose2d
     from ..models.vit import HeadDense
 
@@ -253,6 +272,10 @@ def flax_variables(model: torch.nn.Module) -> Dict[str, Any]:
         for name, t in m.named_buffers(recurse=False):
             if name in m._non_persistent_buffers_set:
                 continue        # constants (Swin's masks and offsets)
+            if isinstance(m, SpectralConv2d):
+                put(stats, path[:-1] + [f"SpectralNorm_{m.sn_index}"],
+                    f"{path[-1]}/kernel/{name}", t.detach().cpu().numpy())
+                continue
             leaf = {"running_mean": "mean", "running_var": "var",
                     "steps": "steps"}[name]
             dtype = torch.int32 if name == "steps" else torch.float32

@@ -68,6 +68,7 @@ def bf16_runs(tmp_path_factory, ckpt):
     port, and the JAX run's calls of the int8 kernels' routes."""
     from reid_tpu.cli import track_main as jax_track_main
     from reid_tpu_torch.cli import track_main
+    from test_torch_zoo_cli import jit_eager_apply
 
     root = tmp_path_factory.mktemp("bf16")
     fdir, det = write_scene(root)
@@ -78,6 +79,7 @@ def bf16_runs(tmp_path_factory, ckpt):
     out_j, out_t = str(root / "jax.txt"), str(root / "torch.txt")
     with pytest.MonkeyPatch.context() as mp:
         calls = force_jax_routes(mp)
+        jit_eager_apply(mp, "seres18")
         want = jax_track_main(flags + ["--save_txt", out_j])
     got = track_main(flags + ["--save_txt", out_t, "--ckpt", ckpt],
                      device="cpu")
@@ -94,6 +96,7 @@ def test_track_main_matches_jax(tmp_path, monkeypatch, ckpt, bf16_runs,
                                 int8):
     from reid_tpu.cli import track_main as jax_track_main
     from reid_tpu_torch.cli import track_main
+    from test_torch_zoo_cli import jit_eager_apply
 
     if int8:
         fdir, det = write_scene(tmp_path)
@@ -101,6 +104,7 @@ def test_track_main_matches_jax(tmp_path, monkeypatch, ckpt, bf16_runs,
                  "--crop_hw", "64", "32", "--num_classes", "16",
                  "--max_dets", "8", "--int8"]
         calls = force_jax_routes(monkeypatch)
+        jit_eager_apply(monkeypatch, "seres18")
         out_j = str(tmp_path / "jax.txt")
         n_j = jax_track_main(flags + ["--save_txt", out_j])
         out_t = str(tmp_path / "torch.txt")
@@ -245,6 +249,7 @@ def test_builtin_detector_matches_jax(tmp_path, capsys, monkeypatch, ckpt,
     against each other and the int8 detectors under one QuantState."""
     from reid_tpu.cli import track_main as jax_track_main
     from reid_tpu_torch.cli import track_main
+    from test_torch_zoo_cli import jit_eager_apply
 
     fdir = write_static_scene(tmp_path, N_STATIC)
     flags = ["--source", fdir, "--chunk", "8", "--crop_hw", "64", "32",
@@ -274,6 +279,7 @@ def test_builtin_detector_matches_jax(tmp_path, capsys, monkeypatch, ckpt,
                   "--det_size", "64", "96", "--conf_thres", "0.05"]
         jax_only, port_only = ["--det_ckpt", orbax], ["--det_ckpt", npz]
     out_j, out_t = str(tmp_path / "jax.txt"), str(tmp_path / "torch.txt")
+    jit_eager_apply(monkeypatch, "seres18")
     n_j = jax_track_main(flags + jax_only + ["--save_txt", out_j])
     capsys.readouterr()
     n_t = track_main(flags + port_only + ["--save_txt", out_t, "--ckpt",

@@ -63,8 +63,11 @@ def scene(tmp_path_factory):
 
 
 @pytest.mark.parametrize("method", ["strongsort", "botsort"])
-def test_cut_scene_metrics_equal_jax(scene, method):
+def test_cut_scene_metrics_equal_jax(scene, method, monkeypatch):
     from reid_tpu.cli import track_main as jax_track_main
+    from test_torch_zoo_cli import jit_eager_apply
+
+    jit_eager_apply(monkeypatch, "seres18")
 
     root, img, gt, det, ckpt = scene
     # the cut: later flags override the gauntlet's --chunk and --max_dets

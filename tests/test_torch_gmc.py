@@ -216,6 +216,8 @@ def test_track_main_botsort_matches_jax(tmp_path, monkeypatch, chunk,
              "--chunk", chunk, "--crop_hw", "64", "32", "--num_classes",
              "16", "--max_dets", "8", "--tracking_method", "botsort"]
     force_jax_routes(monkeypatch)
+    from test_torch_zoo_cli import jit_eager_apply
+    jit_eager_apply(monkeypatch, "seres18")
     out_j = str(tmp_path / "jax.txt")
     n_j = jax_track_main(flags + ["--save_txt", out_j])
     out_t = str(tmp_path / "torch.txt")

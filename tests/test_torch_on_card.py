@@ -72,6 +72,18 @@ Tolerances:
     finite; its eval forward card against CPU, f32 within rtol = atol =
     1e-4 (TF32 off inside the f32 3-D convs), bf16 at a cosine >= 0.999
     a row.
+  * the GAN and detector trainers (reduced widths, f32, TF32 off), one
+    step from one state on the card and on the CPU: the DCGAN step with
+    G's update, the VAE-GAN step with the Wasserstein gradient penalty
+    through the VAE head's BatchNorm, `train_detector` and
+    `train_lsro_baseline`, each of one step: losses within 1e-4
+    relative; the gradient (Adam's first moment; SGD's update) of the GAN
+    steps and LSRO within 1e-3 of its norm (LSRO: or twice the CPU's
+    spread between its two convolution algorithms); statistics
+    (BatchNorm's, the spectral u and sigma) of the GAN steps and the
+    detector within 1e-3 of their largest magnitude; and each GAN step
+    and the detector step after two warm-up steps under the sync debug
+    mode "error".
 """
 
 import numpy as np
@@ -964,3 +976,181 @@ def test_video_forward_on_card_matches_cpu(cuda):
             else:
                 cos = torch.nn.functional.cosine_similarity(g, w, dim=1)
                 assert float(cos.min()) >= 0.999, cos
+
+
+@pytest.fixture
+def tf32_off():
+    """TF32 off for matmuls and cuDNN's convolutions (f32 against the
+    CPU's f32)."""
+    from reid_tpu_torch.cli import full_f32
+    with full_f32():
+        yield
+
+
+def _gan_states(dev, kind):
+    """A seeded DCGAN (spectral, nz 16, ngf = ndf = 16) or VAE-GAN (the
+    VAE, zdim 16, and a Wasserstein D with the VAE head, ndf 8) state on
+    `dev` and its step."""
+    from reid_tpu_torch.gan import models, train as gtrain
+    from reid_tpu_torch.train.optim import Adam
+    if kind == "dcgan":
+        gen = models.Generator(nz=16, ngf=16).init_weights(
+            torch.Generator().manual_seed(0))
+        disc = models.Discriminator(ndf=16).init_weights(
+            torch.Generator().manual_seed(1))
+        state, g_tx, d_tx = gtrain.create_gan_state(gen.to(dev),
+                                                    disc.to(dev))
+        state.step = 2                      # G's update and the EMA follow
+        return state, gtrain.make_dcgan_steps(g_tx, d_tx)
+    vae = models.VAE(zdim=16).init_weights(torch.Generator().manual_seed(0))
+    disc = models.Discriminator(ndf=8, spectral=False, vae=True,
+                                wasserstein=True).init_weights(
+                                    torch.Generator().manual_seed(1))
+    init, step = gtrain.make_vaegan_steps(Adam(2e-4, b1=0.5),
+                                          Adam(2e-4, b1=0.5),
+                                          wasserstein=True)
+    return init(vae.to(dev), disc.to(dev)), step
+
+
+def _gan_args(kind, dev):
+    g = torch.Generator().manual_seed(2)
+    real = torch.rand((4, 128, 64, 3), generator=g) * 2 - 1
+    if kind == "dcgan":
+        extra = (torch.randn((4, 16), generator=g),
+                 torch.randn((4, 16), generator=g))
+    else:
+        extra = (torch.randn((4, 16), generator=g),
+                 torch.rand((4, 1, 1, 1), generator=g))
+    return [t.to(dev) for t in (real, *extra)]
+
+
+def _modules(state):
+    if hasattr(state, "vae"):
+        return state.vae, state.discriminator, state.vae_opt, state.d_opt
+    return (state.generator, state.discriminator, state.g_opt,
+            state.d_opt)
+
+
+@pytest.mark.parametrize("kind", ["dcgan", "vaegan_gp"])
+def test_gan_step_on_card_matches_cpu(cuda, tf32_off, kind):
+    out = {}
+    for dev in ("cpu", cuda):
+        state, step = _gan_states(dev, kind)
+        state, m = step(state, *_gan_args(kind, dev))
+        a, b, oa, ob = _modules(state)
+        out[str(dev)] = (sum(float(v) for v in m.values()),
+                         torch.cat([t.detach().double().cpu().ravel()
+                                    for t in oa["mu"] + ob["mu"]]),
+                         [t.cpu() for t in list(a.buffers())
+                          + list(b.buffers())])
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+    assert float((gg - gc).norm() / gc.norm()) <= 1e-3
+    for x, y in zip(sg, sc):
+        scale = max(float(y.abs().max()), 1e-30)
+        assert float((x - y).abs().max()) <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("kind", ["dcgan", "vaegan_gp"])
+def test_gan_step_on_card_makes_no_host_sync(cuda, kind):
+    state, step = _gan_states(cuda, kind)
+    args = _gan_args(kind, cuda)
+    for _ in range(2):
+        step(state, *args)
+    torch.cuda.synchronize()
+    if kind == "dcgan":
+        state.step = 5                  # a G step, with the EMA
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(np.isfinite(float(v)) for v in m.values())
+
+
+def _detector_data():
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 255, (4, 96, 160, 3), np.uint8)
+    xy = rng.uniform(0, 100, (4, 5, 2))
+    tlwh = np.concatenate([xy, rng.uniform(8, 40, (4, 5, 2))], -1)
+    return frames, tlwh.astype(np.float32), np.ones((4, 5), bool)
+
+
+def test_train_detector_on_card_matches_cpu(cuda, tf32_off):
+    from reid_tpu_torch.train.detector_train import train_detector
+    out = {}
+    for dev in ("cpu", cuda):
+        model, v, losses = train_detector(
+            *_detector_data(), det_hw=(64, 128), epochs=1, batch_size=4,
+            base=8, log_fn=lambda *_: None, device=dev)
+        out[str(dev)] = (losses[0], torch.cat([
+            p.detach().double().cpu().ravel() for p in model.parameters()]),
+            [b.cpu() for b in model.buffers()])
+    (lc, pc, sc), (lg, pg, sg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+    for x, y in zip(sg, sc):
+        assert float((x - y).abs().max()) <= 1e-3 * float(y.abs().max())
+
+
+def test_detector_step_on_card_makes_no_host_sync(cuda):
+    from reid_tpu_torch.models.detector import (CenterNetLite,
+                                                detection_loss,
+                                                make_centernet_targets)
+    from reid_tpu_torch.tracking.pipeline import resize_bilinear_matmul
+    from reid_tpu_torch.train.optim import Adam
+    model = CenterNetLite(base=8).init_weights(
+        torch.Generator().manual_seed(0)).to(cuda)
+    params = list(model.parameters())
+    tx = Adam(1e-3)
+    opt = tx.init(params)
+    frames, tlwh, valid = (torch.from_numpy(a).to(cuda)
+                           for a in _detector_data())
+
+    def step():
+        x = resize_bilinear_matmul(frames.to(torch.float32) / 255.0,
+                                   (64, 128))
+        loss = detection_loss(model(x, train=True), *make_centernet_targets(
+            tlwh * 0.8, valid, (64, 128)))
+        tx.apply(params, torch.autograd.grad(loss, params), opt)
+        return loss
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.isfinite(float(loss.detach()))
+
+
+def test_lsro_baseline_on_card_matches_cpu(cuda, tf32_off):
+    """One SGD step of `train_lsro_baseline` (baseline at 128x64, 12 real
+    and 4 generated images): the loss within 1e-4 relative and the
+    update (-lr g) within 1e-3 of its norm, or twice the CPU's spread
+    between its two convolution algorithms where that is wider (the
+    train-mode norms over 16 images amplify each convolution's order)."""
+    from reid_tpu_torch.gan.driver import train_lsro_baseline
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils.flax_bridge import flatten, flax_variables
+    rng = np.random.default_rng(4)
+    real = rng.integers(0, 255, (12, 128, 64, 3), np.uint8)
+    gen = rng.integers(0, 255, (4, 128, 64, 3), np.uint8)
+    start = flatten(flax_variables(build_model(
+        "baseline", 4, device="cpu",
+        generator=torch.Generator().manual_seed(0)))["params"])
+    out = {}
+    for run, dev, mkldnn in (("cpu", "cpu", True), ("card", cuda, True),
+                             ("aten", "cpu", False)):
+        with torch.backends.mkldnn.flags(enabled=mkldnn):
+            v, hist = train_lsro_baseline(real, np.arange(12) % 4, gen, 4,
+                                          epochs=1, batch_size=16,
+                                          log_fn=lambda *_: None, device=dev)
+        p = flatten(v["params"])
+        out[run] = (hist[0]["loss"], np.concatenate(
+            [(p[k] - start[k]).ravel() for k in sorted(start)]))
+    (lc, uc), (lg, ug), (_, ua) = out["cpu"], out["card"], out["aten"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+    spread = np.linalg.norm(ua - uc) / np.linalg.norm(uc)
+    rel = np.linalg.norm(ug - uc) / np.linalg.norm(uc)
+    assert rel <= max(1e-3, 2 * spread), (rel, spread)

@@ -18,10 +18,13 @@ run each, as tests/test_torch_zoo_cli.py holds the other backbones:
     from the checkpoint's classifier, which the transformers name
     "mlp_head" (`flax_bridge.classifier_width`).
 
-`track_main --backbone swin_v1` at 224x224, the smallest size the JAX
-package runs Swin at, matched JAX's rows on this scene too, but took 68 s
-on this file's host (128 crops of 224x224 through both packages' Swin-T
-on the CPU), more than the whole file may: it is not run here.
+  * `track_main --backbone swin_v1` at 224x224, the smallest size the
+    JAX package runs Swin at (the grid must halve three times into whole
+    7x7 windows), Swin-T at full width, on the first 6 frames of that
+    scene (`--max_frames 6`, --chunk 3, 4 detection slots: two embed
+    calls of 12 crops, where the whole scene's 128 crops took 68 s): the
+    same limits as vit's, in bf16 (JAX's CLI runs its width probe, one
+    crop, op by op: `test_torch_zoo_cli.jit_eager_apply` jits it).
 """
 
 import jax
@@ -33,6 +36,7 @@ from test_torch_cli import read_mot, write_scene
 from test_torch_quantize import force_jax_routes
 from test_torch_retrieval import write_market_tree
 from test_torch_train_data import two_torch_threads  # noqa: F401
+from test_torch_zoo_cli import jit_eager_apply, skip_jax_init
 
 
 def port_variables(backbone, num_classes, hw):
@@ -43,9 +47,11 @@ def port_variables(backbone, num_classes, hw):
 
 
 def track_matches_jax(tmp_path, monkeypatch, backbone, hw, int8,
-                      width):
+                      width, extra=("--chunk", "8", "--max_dets", "8"),
+                      min_rows=20):
     """`track_main` of both packages on test_torch_cli's scene at `hw`
-    crops from one set of weights (and one QuantState under `int8`)."""
+    crops from one set of weights (and one QuantState under `int8`),
+    `extra` flags setting the chunk and the slots."""
     import reid_tpu.utils as jutils
     import reid_tpu.utils.quantize as jqz
     import reid_tpu_torch.utils.quantize as tqz
@@ -61,11 +67,13 @@ def track_matches_jax(tmp_path, monkeypatch, backbone, hw, int8,
     monkeypatch.setattr(jutils, "restore_checkpoint",
                         lambda path, tpl: jax.tree_util.tree_map(
                             jnp.asarray, v))
+    skip_jax_init(monkeypatch, backbone, v)
+    jit_eager_apply(monkeypatch, backbone)
     fdir, det = write_scene(tmp_path)
-    flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
+    flags = ["--detections", det, "--frames_dir", fdir, *extra,
              "--crop_hw", str(hw[0]), str(hw[1]), "--num_classes", "16",
-             "--max_dets", "8", "--backbone", backbone, "--ckpt",
-             ckpt] + (["--int8"] if int8 else [])
+             "--backbone", backbone, "--ckpt", ckpt] + (
+                 ["--int8"] if int8 else [])
     calls = force_jax_routes(monkeypatch)
     qstates = []
     jquantize = jqz.quantize
@@ -95,7 +103,7 @@ def track_matches_jax(tmp_path, monkeypatch, backbone, hw, int8,
     out_t = str(tmp_path / "torch.txt")
     n_t = cli.track_main(flags + ["--save_txt", out_t], device="cpu")
     assert widths == [width + 16]
-    assert n_t == n_j > 20
+    assert n_t == n_j > min_rows
     rj, rt = read_mot(out_j), read_mot(out_t)
     np.testing.assert_array_equal(rt[:, :2], rj[:, :2])
     np.testing.assert_allclose(rt[:, 2:6], rj[:, 2:6], atol=0.02)
@@ -104,6 +112,12 @@ def track_matches_jax(tmp_path, monkeypatch, backbone, hw, int8,
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_track_main_vit_matches_jax(tmp_path, monkeypatch, int8):
     track_matches_jax(tmp_path, monkeypatch, "vit", (64, 32), int8, 384)
+
+
+def test_track_main_swin_v1_matches_jax(tmp_path, monkeypatch):
+    track_matches_jax(tmp_path, monkeypatch, "swin_v1", (224, 224), False,
+                      96, ("--chunk", "3", "--max_dets", "4",
+                               "--max_frames", "6"), min_rows=6)
 
 
 def test_inference_main_vit_matches_jax(tmp_path_factory, tmp_path,
@@ -115,6 +129,7 @@ def test_inference_main_vit_matches_jax(tmp_path_factory, tmp_path,
 
     market = write_market_tree(str(tmp_path_factory.mktemp("m") / "m"))
     v = port_variables("vit", 6, (80, 40))
+    skip_jax_init(monkeypatch, "vit", v)
     monkeypatch.setattr(jutils, "restore_checkpoint",
                         lambda path, state: state.replace(
                             params=jax.tree_util.tree_map(jnp.asarray,

@@ -93,6 +93,7 @@ def track_int8_matches_jax(tmp_path, monkeypatch, backbone, k1_sites):
     model = jbuild(backbone, num_classes=16, dtype=jnp.bfloat16)
     variables = jax.jit(lambda k, x: model.init(k, x, train=True))(
         jax.random.PRNGKey(0), jnp.zeros((2, 64, 32, 3), jnp.bfloat16))
+    jit_eager_apply(monkeypatch, backbone)
     ckpt = str(tmp_path / "init.npz")
     save_npz(ckpt, jax.tree_util.tree_map(np.asarray, variables))
 
@@ -307,6 +308,40 @@ def test_train_main_renorm_refuses_resnets(tmp_path):
     assert not supports_renorm("osnet")
 
 
+def jit_eager_apply(monkeypatch, backbone):
+    """JAX's `track_main` runs its width probe (one crop through the
+    embed, `reid_tpu/cli.py:556`) outside any jit, op by op: an XLA
+    compile an op, about 33 s of the Swin and int8 CARes18 runs. Here
+    each call of the backbone's `apply` made outside a trace runs under
+    a fresh `jax.jit`, traced under the flax interceptors active at that
+    call (the int8 route's is pure and traceable: the CLI's jitted chunk
+    program traces it too); inside a trace, and under
+    `jax.disable_jit`, `apply` runs as it is. The probe's width is the
+    one value that an eager call returns: the chunked path and the
+    per-frame path (`make_crop_embed`) run the embed jitted."""
+    from reid_tpu.models import build_model as jbuild
+
+    cls = type(jbuild(backbone, num_classes=1))
+    apply = cls.apply
+
+    def eager_apply(self, variables, *args, **kwargs):
+        leaves = jax.tree_util.tree_leaves((variables, args))
+        if any(isinstance(x, jax.core.Tracer) for x in leaves):
+            return apply(self, variables, *args, **kwargs)
+        return jax.jit(lambda v, *a: apply(self, v, *a, **kwargs))(
+            variables, *args)
+    monkeypatch.setattr(cls, "apply", eager_apply)
+
+
+def skip_jax_init(monkeypatch, backbone, v):
+    """The JAX CLI's `init` of `backbone` returns `v`, which its
+    checkpoint restore (patched by the caller) hands it anyway: XLA then
+    compiles no init program."""
+    from reid_tpu.models import build_model as jbuild
+    monkeypatch.setattr(type(jbuild(backbone, num_classes=1)), "init",
+                        lambda self, *a, **k: v)
+
+
 def osnet_variables(backbone, num_classes, gamma=0.5):
     """The port's init of `backbone` as flax variables, every PAM `gamma`
     at `gamma`."""
@@ -340,6 +375,8 @@ def test_track_main_osnet_matches_jax(tmp_path, monkeypatch, backbone,
     monkeypatch.setattr(jutils, "restore_checkpoint",
                         lambda path, tpl: jax.tree_util.tree_map(
                             jnp.asarray, v))
+    skip_jax_init(monkeypatch, backbone, v)
+    jit_eager_apply(monkeypatch, backbone)
     fdir, det = write_scene(tmp_path)
     flags = ["--detections", det, "--frames_dir", fdir, "--chunk", "8",
              "--crop_hw", "64", "32", "--num_classes", "16", "--max_dets",
@@ -389,6 +426,7 @@ def test_inference_main_plr_osnet_matches_jax(market_tree, tmp_path,
     from reid_tpu_torch.utils.flax_bridge import save_npz
 
     v = osnet_variables("plr_osnet", 6, gamma=0.3)
+    skip_jax_init(monkeypatch, "plr_osnet", v)
     monkeypatch.setattr(jutils, "restore_checkpoint",
                         lambda path, state: state.replace(
                             params=jax.tree_util.tree_map(jnp.asarray,
