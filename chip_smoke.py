@@ -352,6 +352,24 @@ kernel of K1-K7 lies on these paths (their launches counted, 0):
               under phase 14's limits or twice the CPU's own spread
               between its two convolution algorithms
               (`phase_gan_card_vs_cpu`).
+ 40. parallel a world-1 NCCL process group on loopback around each part
+              (`process_group`), left after it; (a) after phase 13,
+              `train_cnn(mesh=)` on it against `train_cnn` without one over
+              the training tree's first 32 ids, cuDNN deterministic:
+              losses and weights bit for bit, the collectives called;
+              then `image_reid_train` under `torch.distributed.run
+              --standalone --nproc_per_node=1` on a tree of that size;
+              (b) after phase 7, the row-sharded Jaccard at world 1 on the
+              retrieval run's features (N = 23,100) against the dense
+              one, seconds and peak memory of both, K7 at its sharded call
+              site held against `l1_plain` on 1,024 rows of the slab, and
+              the post-embed half of `run_inference(mesh=)` against the
+              dense run's mAP; (c) in phase 4d, one chunk of the
+              MOT16-load streams through `make_stream_tracker(mesh=)`
+              against the meshless tracker; (d) last, DeepLabV3-ResNet50
+              at torchvision's widths on 64 crops of 256x128 (f32 and
+              bf16 forward, card against CPU on 2 crops), SegUNet's
+              `batched_extraction` and two epochs of `train_segmenter`.
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
@@ -360,6 +378,7 @@ import argparse
 import contextlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -437,13 +456,14 @@ N_QUERY, N_GALLERY, N_IDS, N_CAMS, N_CLASSES = 3368, 19732, 750, 6, 751
 # S streams, `n_real` boxes a frame in `max_dets` slots; each stream's crop
 # budget is chunk x n_real, so a chunk embeds S x chunk x n_real crops;
 # `n_chunks` chunks a run, all but the first timed (a few seconds; cut
-# from 4 and 6 to 3 and 4, then to 2 and 3, for the smoke's time limit)
+# from 4 and 6 to 3 and 4, then to 2 and 3, then to 2 and 2, for the
+# smoke's time limit)
 STREAM_POINTS = {
     "multistream8": dict(streams=8, chunk=64, hw=(480, 640), n_real=16,
                          max_dets=32, max_tracks=64, n_chunks=2),
     "mot16_load_multistream8": dict(streams=8, chunk=8, hw=(1080, 1920),
                                     n_real=50, max_dets=64,
-                                    max_tracks=128, n_chunks=3)}
+                                    max_tracks=128, n_chunks=2)}
 
 RESULTS = {}
 # the script's start, for each line's seconds since it (`t_s`)
@@ -1320,7 +1340,9 @@ def phase_distance_kernels(kind, keep, suffix="", path="retrieval",
 
         # K7: a 1,024-row slab of the min-sum, then one full call
         _, rank = dist.topk_neighbors(feats, feats, k=20)
-        v = rerank._v_encoding(feats, rank, 20, 6, StageTimer(None, "cuda"))
+        v = rerank._query_expansion(rerank._v_rows(
+            feats, rank, 20, 0, feats.shape[0], StageTimer(None, "cuda")),
+            rank, 6)
         del feats, rank
         nnz = (v > 0).sum(1)
         slab = v[:1024]
@@ -1878,8 +1900,8 @@ def phase_streams(kind, dev, profile=False):
     """Phase 4d: multi-stream tracking at both operating points of
     `STREAM_POINTS` with the CLI's int8 embed (`cli.build_embed`), and
     botsort streams with GMC on phase 4's pan (PAN) at the MOT16-load
-    point; then K1 and K2 at the stream batch (B = 8192), held against
-    their plain versions."""
+    point; phase 40 (c) with the same embed; then K1 and K2 at the
+    stream batch (B = 8192), held against their plain versions."""
     import torch
     from reid_tpu_torch.cli import build_embed, full_f32
     from reid_tpu_torch.utils.quantize import quantize_input
@@ -1909,6 +1931,8 @@ def phase_streams(kind, dev, profile=False):
         emit("streams botsort gmc", pan=list(PAN), max_err_to_pan=err)
         assert err <= 1.0, err
         del data
+        with process_group("streams") as mesh:
+            phase_streams_mesh(embed, dev, mesh)
     torch.cuda.empty_cache()
 
     # K1 and K2 at the stream batch: every crop of a multistream8 chunk
@@ -3272,8 +3296,8 @@ def phase_video_train(tmp):
     make, batches = video_train.make_video_train_step, \
         video_train.VideoTrackletDataset.batches
 
-    def make_step(cfg):
-        step = make(cfg)
+    def make_step(cfg, **kw):
+        step = make(cfg, **kw)
 
         def timed(state, batch):
             out = step(state, batch)
@@ -3935,6 +3959,419 @@ def phase_gan_card_vs_cpu():
         assert got["stats_rel"] <= lim["stats_rel"], (name, r)
 
 
+MESH_TRAIN_IDS = 32          # phase 40: the training tree's first ids
+
+
+@contextlib.contextmanager
+def process_group(part):
+    """Phase 40: a world-1 NCCL process group on loopback (a free port)
+    around one part of the phase, and its mesh; the group is left at the
+    block's end, so the other phases run without one, as before."""
+    import socket
+
+    import torch
+    from reid_tpu_torch.parallel import default_mesh, init_distributed
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    rank = init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        mesh = default_mesh()
+        assert rank == 0 and mesh.size == 1 and mesh.collective, mesh
+        assert torch.distributed.get_backend() == "nccl"
+        emit(f"process group {part}", backend="nccl", world=1, rank=rank,
+             init_s=time.perf_counter() - t0)
+        yield mesh
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+class CollectiveCount:
+    """Counts the torch.distributed collectives called inside the block
+    (the autograd all_gather and all_reduce call these too)."""
+
+    NAMES = ("all_gather", "all_reduce", "broadcast", "reduce_scatter",
+             "all_to_all")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts = {n: 0 for n in self.NAMES}
+        self.old = {n: getattr(dist, n) for n in self.NAMES}
+
+        def counted(name, fn):
+            def call(*a, **k):
+                self.counts[name] += 1
+                return fn(*a, **k)
+            return call
+        for n in self.NAMES:
+            setattr(dist, n, counted(n, self.old[n]))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self.old.items():
+            setattr(dist, n, fn)
+
+
+def phase_train_mesh(tmp, mesh):
+    """Phase 40 (a): `train_cnn(mesh=)` on the world-1 NCCL group against
+    `train_cnn` without a mesh, from one state over the training tree's
+    first `MESH_TRAIN_IDS` ids (the CLI's bf16 configuration, --bs 64
+    --instance 4, one epoch), cuDNN deterministic: losses and weights bit
+    for bit, the collectives called (identities on one rank); then
+    `image_reid_train` under `torch.distributed.run --standalone
+    --nproc_per_node=1` on a tree of that size, which must join the
+    group, train and write its checkpoint."""
+    import copy
+
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.data.dataset import ReIDDataset
+    from reid_tpu_torch.data.datasets import (build_dataset,
+                                              write_synthetic_tree)
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.train.image_train import train_cnn
+    from reid_tpu_torch.train.state import create_train_state
+
+    market = os.path.join(tmp, "market")
+    raw = build_dataset("market1501", market)
+    records = [r for r in raw.train if r[1] < MESH_TRAIN_IDS]
+    args = cli._train_parser().parse_args(
+        ["--root", market, "--epochs", "1", "--bs", "64", "--instance", "4"])
+    cfg = cli._train_cfg(args, MESH_TRAIN_IDS)
+    ds = ReIDDataset(records, MESH_TRAIN_IDS, cfg.data.height,
+                     cfg.data.width)
+    gen = torch.Generator().manual_seed(cfg.train.seed)
+    model = build_model(cfg.model.backbone, num_classes=MESH_TRAIN_IDS,
+                        num_cams=cfg.model.num_cams,
+                        dtype=getattr(torch, cfg.model.dtype), device="cuda",
+                        generator=gen)
+    state = create_train_state(model, cfg, max(len(ds) // 64, 1), gen)
+    runs = {}
+    det, bench = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for name, m in (("one device", None), ("mesh", mesh)):
+            with CollectiveCount() as cc:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, losses = train_cnn(cfg, ds, state=copy.deepcopy(state),
+                                       log_every=1, device="cuda",
+                                       ckpt_dir=os.path.join(tmp, "m_" +
+                                                             name[0]),
+                                       mesh=m)
+                torch.cuda.synchronize()
+            runs[name] = (st, losses, time.perf_counter() - t0, cc.counts)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+    (a, la, sa, ca), (b, lb, sb, cb) = runs["one device"], runs["mesh"]
+    same_w = all(torch.equal(p, q) for p, q in zip(
+        a.model.parameters(), b.model.parameters()))
+    same_b = all(torch.equal(p, q) for p, q in zip(a.model.buffers(),
+                                                   b.model.buffers()))
+    assert len(la) >= 3 and all(np.isfinite(la)), la
+    assert sum(ca.values()) == 0 and cb["all_gather"] > 0 and \
+        cb["all_reduce"] > 0, (ca, cb)
+
+    # the CLI under torchrun, one rank
+    small = os.path.join(tmp, "market_small")
+    write_synthetic_tree(small, "market1501", MESH_TRAIN_IDS, TRAIN_PER_ID,
+                         query_per_id=1, gallery_per_id=2)
+    work = os.path.join(tmp, "torchrun")
+    os.makedirs(work, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    # a POSIX process group of its own, so that a timeout ends torchrun
+    # and its worker
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "reid_tpu_torch.image_reid_train",
+         "--root", small, "--epochs", "1", "--bs", "64", "--instance", "4"],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    cli_s = time.perf_counter() - t0
+    ckpt = os.path.join(work, "checkpoint",
+                        "cnn_net_checkpoint_market1501.npz")
+    ok = (proc.returncode == 0 and "data parallel over 1 rank" in out
+          and "training complete" in out and os.path.exists(ckpt))
+    emit("train_cnn mesh world 1", ids=MESH_TRAIN_IDS, images=len(ds),
+         steps=len(lb), losses_one_device=la, losses_mesh=lb,
+         losses_bit_equal=la == lb, weights_bit_equal=same_w,
+         buffers_bit_equal=same_b, one_device_s=sa, mesh_s=sb,
+         collectives_mesh=cb, torchrun_cli_rc=proc.returncode,
+         torchrun_cli_s=cli_s, torchrun_cli_ok=ok,
+         torchrun_tail=out[-600:] + err[-600:])
+    assert la == lb and same_w and same_b, (la, lb, same_w, same_b)
+    assert ok, (proc.returncode, out[-2000:], err[-2000:])
+
+
+def phase_sharded_jaccard(kind, keep, mesh, query, gallery):
+    """Phase 40 (b): the row-sharded Jaccard at world 1 on the retrieval
+    run's de-biased features (N = 23,100, D = 1,263) against the dense
+    one: both timed with their peak memory, the sharded run's launches
+    counted; K7 at its new call site (the (N/p, N) min-sum slab) held
+    against `l1_plain` on a 1,024-row slice of that slab's operands and
+    timed; then the post-embed half of `run_inference(mesh=)`
+    (`evaluate_features`) on the run's own embeddings against the dense
+    run's mAP. Returns K7's row."""
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.eval.inference import evaluate_features
+    from reid_tpu_torch.ops import _lib
+    from reid_tpu_torch.ops import distance as dist
+    from reid_tpu_torch.ops import rerank
+    from reid_tpu_torch.ops.camera import diminish_camera_bias
+
+    with full_f32(), torch.inference_mode():
+        cams = torch.cat([torch.as_tensor(keep["gallery_cams"]),
+                          torch.as_tensor(keep["query_cams"])]).cuda()
+        feats = diminish_camera_bias(torch.cat([keep["gf"], keep["qf"]]),
+                                     cams)
+        n, d = feats.shape
+        out = {}
+        for name in ("dense", "sharded"):
+            captured = {}
+
+            def capture(fn):
+                def minsum(v_rows, v_all, s):
+                    captured.update(rows=v_rows, all=v_all)
+                    return fn(v_rows, v_all, s)
+                return minsum
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _lib.reset_launch_counts()
+            timing = {}
+            t0 = time.perf_counter()
+            with patched(rerank, "_minsum_jaccard", capture):
+                if name == "dense":
+                    jac = rerank.compute_jaccard_distance(feats, 20, 6,
+                                                          timing=timing)
+                else:
+                    jac = rerank.compute_jaccard_distance_sharded(
+                        mesh, feats, 20, 6, timing=timing)
+            torch.cuda.synchronize()
+            out[name] = dict(jac=jac, s=time.perf_counter() - t0,
+                             peak_gb=(torch.cuda.max_memory_allocated()
+                                      - base) / 1e9,
+                             counts=_lib.launch_counts(), steps_s=timing)
+            if name == "sharded":
+                v_rows, v_all = captured["rows"], captured["all"]
+            del captured
+        dense, sharded = out["dense"].pop("jac"), out["sharded"].pop("jac")
+        diff = (sharded - dense).abs()
+        rows_differ = int((diff > 0).any(1).sum())
+        max_diff = diff.max().item()
+        del diff
+        counts = out["sharded"]["counts"]
+        assert counts.get("l1", 0) == 1 and counts.get("sqeuclidean", 0) \
+            >= 1, counts
+        # K7 at the sharded site: its 1,024 first rows against the plain L1
+        site = [v_rows.shape[0], v_all.shape[0], v_all.shape[1]]
+        slab = v_rows[:1024]
+        m = slab.shape[0]
+        got = dist.l1(slab, v_all)
+        want, plain_ms = timed_once(lambda: dist.l1_plain(slab, v_all))
+        err = (got - want).abs()
+        assert bool((err <= 1e-5 + 1e-5 * want.abs()).all()), err.max()
+        del got, want
+        bms, by = bound(2 * m * n * n, 4 * (m * n + n * n + m * n), kind,
+                        "fp32_alu")
+        row = dict(name="l1 min-sum sharded slab", route="cuda",
+                   source=DIST_SOURCE, replaces=K7_REPLACES,
+                   site=site, slab=[m, n, n], path="retrieval sharded world 1",
+                   launches=counts["l1"], max_abs_err=err.max().item(),
+                   ms=time_ms(lambda: dist.l1(slab, v_all)),
+                   plain_ms=plain_ms,
+                   library_ms=time_ms(lambda: torch.cdist(slab, v_all, p=1),
+                                      reps=1, warm=0),
+                   bound_ms=bms, bound_by=by,
+                   site_ms=time_ms(lambda: dist.l1(v_rows, v_all), reps=1,
+                                   warm=0))
+        row["site_bound_ms"], _ = bound(
+            2 * site[0] * n * n, 4 * (site[0] * n + n * n + site[0] * n),
+            kind, "fp32_alu")
+        del err, slab, v_rows, v_all, dense, sharded, feats
+        torch.cuda.empty_cache()
+        emit(f"kernel {row['name']}", **row)
+        # the post-embed half of run_inference(mesh=)
+        argv = ["--search_option", "dense", "--bs", "64"]
+        cfg = cli._base_cfg(cli._inference_parser().parse_args(argv),
+                            N_CLASSES)
+        t0 = time.perf_counter()
+        cmc, mean_ap = evaluate_features(keep["qf"], keep["gf"], query,
+                                         gallery, cfg, verbose=False,
+                                         mesh=mesh)
+        eval_s = time.perf_counter() - t0
+    want_ap = RESULTS["retrieval"]["mAP"]
+    emit("jaccard sharded world 1", n=n, dim=d, dense_s=out["dense"]["s"],
+         sharded_s=out["sharded"]["s"],
+         dense_peak_gb=out["dense"]["peak_gb"],
+         sharded_peak_gb=out["sharded"]["peak_gb"],
+         sharded_steps_s=out["sharded"]["steps_s"],
+         sharded_launches=counts, bit_equal=rows_differ == 0,
+         rows_differ=rows_differ, max_abs_diff=max_diff,
+         mesh_eval_s=eval_s, mAP_mesh=mean_ap, mAP_dense=want_ap,
+         cmc1_mesh=float(cmc[0]), cmc1_dense=RESULTS["retrieval"]["cmc1"])
+    assert rows_differ == 0, (max_diff, rows_differ)
+    assert abs(mean_ap - want_ap) <= 1e-4, (mean_ap, want_ap)
+    return row
+
+
+def phase_streams_mesh(embed, dev, mesh):
+    """Phase 40 (c): `make_stream_tracker(mesh=)` on the world-1 group
+    for one chunk of phase 4d's MOT16-load scene (8 streams, int8 embed),
+    against the meshless stream tracker: ids and valid equal, boxes
+    within 1e-4 (bit-equality reported); K1 and K2 launched in the mesh
+    run."""
+    import torch
+    from reid_tpu_torch.ops import _lib
+    from reid_tpu_torch.tracking.streams import (init_stream_states,
+                                                 make_stream_tracker)
+
+    point = dict(STREAM_POINTS["mot16_load_multistream8"], n_chunks=1)
+    data = stream_data(point, dev)
+    cfg = stream_cfg(point)
+    outs, counts, secs = {}, {}, {}
+    for name, m in (("one process", None), ("mesh", mesh)):
+        run = make_stream_tracker(cfg, embed, (256, 128),
+                                  chunk=point["chunk"],
+                                  crop_budget=point["chunk"] *
+                                  point["n_real"], device=dev, mesh=m)
+        st = init_stream_states(point["streams"], point["max_tracks"],
+                                512 + N_CLASSES, device=dev)
+        torch.cuda.synchronize()
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        with CollectiveCount() as cc:
+            _, outs[name] = run(st, *data)
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = dict(_lib.launch_counts(), **{
+            f"collective {k}": v for k, v in cc.counts.items() if v})
+    a, b = outs["one process"], outs["mesh"]
+    ids = torch.equal(a["ids"], b["ids"])
+    valid = torch.equal(a["valid"], b["valid"])
+    v = a["valid"]
+    err = (a["tlwh"][v] - b["tlwh"][v]).abs().max().item() if bool(
+        v.any()) else 0.0
+    emit("streams mesh world 1", streams=point["streams"],
+         frames=point["chunk"], ids_equal=ids, valid_equal=valid,
+         tlwh_max_err=err, bit_equal=all(torch.equal(a[k], b[k]) for k in a),
+         valid_tracks=int(v.sum()), seconds=secs, launches=counts)
+    assert ids and valid and err <= 1e-4 and int(v.sum()) > 0
+    for k in ("conv3x3_s8", "se_basic_block_s8", "collective all_gather"):
+        assert counts["mesh"].get(k, 0) > 0, (k, counts)
+
+
+DEEPLAB_CROPS = 64
+
+
+def phase_deeplab():
+    """Phase 40 (d): DeepLabV3-ResNet50 at torchvision's widths (width 64,
+    head 256, 21 classes, 39.6M parameters without torchvision's
+    auxiliary head; a random init from a seeded generator, BN statistics
+    0 / 1) on 64 crops of 256x128: the forward timed in f32
+    (TF32 off) and bf16 with peak memory; card against CPU on 2 crops in
+    f32 (logits within 1e-4 of the CPU's largest, the person masks equal
+    where the top two logits are more than 1e-5 of it apart); then
+    `batched_extraction` with SegUNet(base=32) over the 64 crops and two
+    epochs of `train_segmenter` on them (the crops' bright box the mask),
+    whose loss must fall."""
+    import copy
+
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.data import segmentation as seg
+    from reid_tpu_torch.models.deeplab import DeepLabV3, extract_foreground
+
+    gen = torch.Generator().manual_seed(0)
+    model = DeepLabV3(21, 64, 256).init_weights(gen).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    cpu = copy.deepcopy(model)
+    model = model.cuda()
+    # person crops: a bright box (the mask) on a darker textured ground
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 60, (DEEPLAB_CROPS, 256, 128, 3)).astype(
+        np.uint8)
+    masks = np.zeros((DEEPLAB_CROPS, 256, 128), np.float32)
+    for i in range(DEEPLAB_CROPS):
+        y, x = 40 + i % 24, 24 + i % 16
+        imgs[i, y:y + 160, x:x + 64] = 200 + i % 40
+        masks[i, y:y + 160, x:x + 64] = 1.0
+    x = torch.from_numpy(imgs).cuda().to(torch.float32) / 255.0
+    res = {}
+    with torch.inference_mode():
+        for name, dtype in (("f32", torch.float32), ("bf16",
+                                                     torch.bfloat16)):
+            m = model if dtype == torch.float32 else copy.deepcopy(model)
+            if dtype != torch.float32:
+                for mod in m.modules():
+                    if hasattr(mod, "dtype"):
+                        mod.dtype = dtype
+            with full_f32():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                y = m(x)
+                torch.cuda.synchronize()
+                res[name] = dict(
+                    ms=time_ms(lambda: m(x), reps=5, warm=1),
+                    peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+            assert tuple(y.shape) == (DEEPLAB_CROPS, 256, 128, 21)
+            assert bool(torch.isfinite(y).all()), name
+            del y, m
+        with full_f32():
+            got = model(x[:2]).cpu()
+        want = cpu(x[:2].cpu())
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= 1e-5 * scale
+    same = extract_foreground(got) == extract_foreground(want)
+    # the segmentation module on the card
+    unet = seg.SegUNet(base=32).init_weights(
+        torch.Generator().manual_seed(0)).cuda()
+    with torch.inference_mode():
+        comp = seg.batched_extraction(unet, x * 255.0)
+        torch.cuda.synchronize()
+        ext_ms = time_ms(lambda: seg.batched_extraction(unet, x * 255.0),
+                         reps=5, warm=1)
+    assert tuple(comp.shape) == tuple(x.shape) and bool(
+        torch.isfinite(comp).all())
+    t0 = time.perf_counter()
+    _, losses = seg.train_segmenter(imgs, masks, epochs=2, batch_size=16,
+                                    lr=3e-3, base=32, log_fn=lambda *_: None,
+                                    device="cuda")
+    train_s = time.perf_counter() - t0
+    emit("deeplabv3 resnet50", params=n_params, crops=DEEPLAB_CROPS,
+         hw=[256, 128], f32_ms=res["f32"]["ms"],
+         f32_peak_gb=res["f32"]["peak_gb"], bf16_ms=res["bf16"]["ms"],
+         bf16_peak_gb=res["bf16"]["peak_gb"],
+         card_vs_cpu_max_err=err, card_vs_cpu_scale=scale,
+         mask_agree=float(same.double().mean()),
+         mask_agree_off_ties=bool(same[~near].all()),
+         near_ties=int(near.sum()), segunet_extraction_ms=ext_ms,
+         segmenter_losses=losses, segmenter_train_s=train_s)
+    # torchvision's 42M count its auxiliary FCN head, which the
+    # reference's segmenter does not run
+    assert 39e6 < n_params < 40e6, n_params
+    assert err <= 1e-4 * scale and bool(same[~near].all()), (err, scale)
+    assert all(np.isfinite(losses)) and losses[1] < losses[0], losses
+
+
 def set_launches(rows, sites):
     """Each K1/K2 row's launches at its call site in one run of its path."""
     for row in rows:
@@ -4042,6 +4479,8 @@ def main():
         row["launches"] = counts.get(row["name"].split()[0], 0)
         assert row["launches"] > 0, row
     rows += dist_rows
+    with process_group("jaccard") as mesh:
+        rows.append(phase_sharded_jaccard(kind, keep, mesh, query, gallery))
     phase_retrieval_cpu(keep, query, gallery)
     ivf = phase_ivf(keep, query, gallery)
     for row in dist_rows:
@@ -4093,6 +4532,8 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         state, cfg, source, trained, batches = phase_train(tmp)
+        with process_group("train") as mesh:
+            phase_train_mesh(tmp, mesh)
         phase_train_card_vs_cpu()
         counts, checks = phase_continual(state, cfg, source, tmp)
         del state, source
@@ -4147,6 +4588,7 @@ def main():
         phase_gan(tmp)
         phase_train_detector()
         phase_gan_card_vs_cpu()
+    phase_deeplab()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6/K7 on the continual run: its launches, and each held against its

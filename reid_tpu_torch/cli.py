@@ -536,8 +536,9 @@ def _base_cfg(args, num_classes: int):
 
 @torch.inference_mode()
 def inference(argv=None, device: Optional[str] = "cuda", splits=None,
-              timing=None, keep=None):
-    """The body of `inference_main`; returns (CMC, mAP).
+              timing=None, keep=None, mesh=None):
+    """The body of `inference_main`; returns (CMC, mAP). `mesh` (a
+    `parallel.Mesh`) row-shards both Jaccard calls over its ranks.
 
     `splits` = (query, gallery, num_train_pids) takes the place of the
     dataset under `--root` (in-memory splits); without `--ckpt` or
@@ -610,13 +611,16 @@ def inference(argv=None, device: Optional[str] = "cuda", splits=None,
         return run_inference(model, query, gallery, cfg,
                              rerank=not args.no_rerank, embed_fn=embed_fn,
                              device=device, timing=timing, keep=keep,
-                             attribute_dist=attribute_dist)
+                             attribute_dist=attribute_dist, mesh=mesh)
 
 
 def inference_main(argv=None, device: Optional[str] = "cuda"):
     """Retrieval evaluation (ref image_reid_inference.py main :161-320);
-    returns (CMC, mAP)."""
-    return inference(argv, device)
+    returns (CMC, mAP). Under `torchrun` the ranks of the process group
+    share the re-ranking (`parallel.mesh_from_env`), where the JAX
+    package's `run_inference` takes a mesh; one device otherwise."""
+    from .parallel.mesh import mesh_from_env
+    return inference(argv, device, mesh=mesh_from_env(device=device))
 
 
 def _train_parser() -> argparse.ArgumentParser:
@@ -683,7 +687,11 @@ def train_main(argv=None, device: Optional[str] = "cuda",
                ckpt_dir: str = "checkpoint"):
     """Image-ReID training (ref image_reid_train.py main :595-697) with the
     continual branch; returns the train state. The checkpoint goes to
-    `ckpt_dir`."""
+    `ckpt_dir`. As the JAX package's `train_cnn` defaults to a mesh over
+    every local device, under `torchrun` (WORLD_SIZE set) the loop is
+    data parallel over the process group's ranks that divide the batch
+    (`parallel.fit_mesh`), with rank 0 writing the checkpoint and the
+    artifact; without it, one device."""
     p = _train_parser()
     args = p.parse_args(argv)
     refuse_video_backbone(p, args.backbone, "train_main")
@@ -712,22 +720,28 @@ def train_main(argv=None, device: Optional[str] = "cuda",
                     "emares18)")
     from .data.dataset import ReIDDataset
     from .data.datasets import build_dataset
+    from .parallel.mesh import mesh_from_env
     from .train.image_train import (produce_pseudo_data, train_cnn,
                                     train_continual)
 
     raw = build_dataset(args.dataset, args.root)
     cfg = _train_cfg(args, raw.num_train_pids)
     h, w = cfg.data.height, cfg.data.width
+    mesh = mesh_from_env(cfg.train.batch_size, device)
+    if mesh is not None:
+        print(f"data parallel over {mesh.size} rank(s) of the process "
+              "group", flush=True)
     dataset = ReIDDataset(raw.train, raw.num_train_pids, h, w)
     state, _ = train_cnn(cfg, dataset, use_xbm=args.xbm, ckpt=args.ckpt,
-                         ckpt_dir=ckpt_dir, device=device)
+                         ckpt_dir=ckpt_dir, device=device, mesh=mesh)
     if args.continual:
         t_raw = build_dataset(args.target_dataset, args.target_root)
         target = ReIDDataset(t_raw.train, t_raw.num_train_pids, h, w)
-        records, centroids, k = produce_pseudo_data(state, target, cfg)
+        records, centroids, k = produce_pseudo_data(state, target, cfg,
+                                                    mesh=mesh)
         state, _ = train_continual(cfg, state, dataset, records, centroids,
-                                   k, ckpt_dir=ckpt_dir)
-    if args.export:
+                                   k, ckpt_dir=ckpt_dir, mesh=mesh)
+    if args.export and (mesh is None or mesh.rank == 0):
         from .eval.serving import export_reid_artifact
         export_reid_artifact(state.model.eval(), args.export, h, w)
         print(f"serving artifact -> {args.export}")
@@ -738,7 +752,8 @@ def train_main(argv=None, device: Optional[str] = "cuda",
 def video_main(argv=None, device: Optional[str] = "cuda"):
     """Video ReID training (ref video_reid_train.py main :198-231), the
     flags and defaults of `reid_tpu/cli.py:video_main`; prints the final
-    loss and returns the flax variable tree."""
+    loss and returns the flax variable tree. Under `torchrun` the loop is
+    data parallel over the ranks that divide `--bs`, as `train_main`."""
     p = argparse.ArgumentParser("video_reid_train")
     p.add_argument("--gt_paths", nargs="+", required=True)
     p.add_argument("--prefix", default="datasets/MOT16/train/")
@@ -749,14 +764,19 @@ def video_main(argv=None, device: Optional[str] = "cuda"):
     args = p.parse_args(argv)
 
     from .config import Config
+    from .parallel.mesh import mesh_from_env
     from .train.video_train import VideoTrackletDataset, train_video
 
     ds = VideoTrackletDataset(args.gt_paths, seq_len=args.seq_len,
                               lamda=args.crop_factor,
                               prefix_image_path=args.prefix)
+    mesh = mesh_from_env(args.bs, device)
+    # the JAX CLI passes no mesh (one device, or all of them by default)
     variables, losses = train_video(Config(), ds, epochs=args.epochs,
                                     batch_size=args.bs,
-                                    seq_len=args.seq_len, device=device)
+                                    seq_len=args.seq_len, device=device,
+                                    **({} if mesh is None else
+                                       {"mesh": mesh}))
     print(f"video training complete; final loss {losses[-1]:.4f}")
     return variables
 

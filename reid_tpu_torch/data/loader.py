@@ -97,15 +97,25 @@ def make_eval_loader(dataset: ReIDDataset, batch_size: int,
 
 def make_train_loader(dataset: ReIDDataset, batch_size: int,
                       num_instances: int, seed: int = 0, epoch: int = 0,
-                      device="cuda") -> PrefetchLoader:
+                      device="cuda", shard=(0, 1)) -> PrefetchLoader:
     """One epoch of the training loader: PK batches (ref
     RandomIdentitySampler_) when `num_instances` > 0, a plain shuffle
     otherwise (ref image_reid_train.py:51-58), drawn from
-    `np.random.default_rng(seed + epoch)` as the JAX package draws them."""
+    `np.random.default_rng(seed + epoch)` as the JAX package draws them.
+    `shard` = (rank, size): every rank draws the same epoch and loads
+    only its rows rank * B/size : (rank + 1) * B/size of each batch
+    (the last batch wrapped first, as the whole loader wraps it)."""
     rng = np.random.default_rng(seed + epoch)
     if num_instances > 0:
         idx = pk_epoch_indices(dataset.labels, batch_size, num_instances,
                                rng)
     else:
         idx = rng.permutation(len(dataset))
+    rank, size = shard
+    if size > 1:
+        short = (-len(idx)) % batch_size
+        idx = np.concatenate([idx, idx[:short]]).reshape(-1, batch_size)
+        per = batch_size // size
+        idx = idx[:, rank * per:(rank + 1) * per].reshape(-1)
+        batch_size = per
     return PrefetchLoader(dataset, batch_size, idx, device=device)

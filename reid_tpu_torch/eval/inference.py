@@ -5,8 +5,11 @@ gallery + query TTA embeddings -> merge -> camera de-bias -> k-reciprocal
 Jaccard (+ the Market attribute prior, where given) -> DBSCAN -> tracklet
 smoothing -> Jaccard again -> CMC/mAP, or plain dot-product scores when
 re-ranking is off. `evaluate_features` is the part after the embedding, so
-that the same features can go through it on the card and on the CPU. The
-multi-device mesh comes with the port of `reid_tpu/parallel/`.
+that the same features can go through it on the card and on the CPU. With
+a `parallel.Mesh` of several ranks (`mesh=`), every rank embeds both sets
+and both Jaccard calls run row-sharded over the ranks
+(`ops.rerank.compute_jaccard_distance_sharded`), the faiss IndexShards
+role; every rank returns the same CMC / mAP.
 
 With a `timing` dict, each stage's seconds are added to it under its name
 (embed, debias, jaccard1, dbscan, smoothing, jaccard2, eval), with the
@@ -37,8 +40,10 @@ def evaluate_features(qf: torch.Tensor, gf: torch.Tensor, query, gallery,
                       cfg, rerank: bool = True, verbose: bool = True,
                       timing: Optional[Dict[str, float]] = None,
                       keep: Optional[dict] = None,
-                      attribute_dist: Optional[np.ndarray] = None):
-    """(CMC, mAP) from query and gallery embeddings on one device.
+                      attribute_dist: Optional[np.ndarray] = None,
+                      mesh=None):
+    """(CMC, mAP) from query and gallery embeddings on one device, or with
+    the Jaccard row-sharded over `mesh`.
     `query` and `gallery` give `labels`, `cams` and `seqs` (numpy).
     `attribute_dist` ((N, N) over [gallery ; query], `eval/attributes.py`)
     is added to the first Jaccard distances, as the reference does. With
@@ -65,7 +70,8 @@ def evaluate_features(qf: torch.Tensor, gf: torch.Tensor, query, gallery,
     sparse_s = r.rerank_sparse_s or None
     dists = jaccard_distance(merged, k1=r.k1, k2=r.k2, sparse_s=sparse_s,
                              search_option=r.search_option,
-                             timing=_steps(timing, "jaccard1_steps"))
+                             timing=_steps(timing, "jaccard1_steps"),
+                             mesh=mesh)
     if attribute_dist is not None:
         dists = dists + torch.as_tensor(attribute_dist, device=dev)
     stages.mark("jaccard1")
@@ -86,7 +92,8 @@ def evaluate_features(qf: torch.Tensor, gf: torch.Tensor, query, gallery,
         stages.mark("smoothing")
         del dists
         dists = jaccard_distance(merged, k1=r.k1, k2=r.k2, sparse_s=sparse_s,
-                                 timing=_steps(timing, "jaccard2_steps"))
+                                 timing=_steps(timing, "jaccard2_steps"),
+                                 mesh=mesh)
         stages.mark("jaccard2")
 
     # query-to-gallery block of the merged distance matrix
@@ -102,13 +109,14 @@ def run_inference(model, query, gallery, cfg, rerank: bool = True,
                   embed_fn: Optional[Callable] = None, device="cuda",
                   timing: Optional[Dict[str, float]] = None,
                   keep: Optional[dict] = None,
-                  attribute_dist: Optional[np.ndarray] = None):
+                  attribute_dist: Optional[np.ndarray] = None, mesh=None):
     """Returns (CMC, mAP). Follows ref image_reid_inference.py main
     :242-320. `embed_fn` (images [0, 255] -> embeddings: the int8 serving
     embed, or a loaded serving artifact) replaces the model's TTA
     extractor, and `model` may then be None. With `keep`, the embeddings
     are stored under "qf" and "gf" (and the final distances, see
-    `evaluate_features`); `attribute_dist` goes to `evaluate_features`."""
+    `evaluate_features`); `attribute_dist` and `mesh` go to
+    `evaluate_features`."""
     stages = StageTimer(timing, device)
     bs = cfg.train.batch_size
     if embed_fn is not None:
@@ -124,4 +132,4 @@ def run_inference(model, query, gallery, cfg, rerank: bool = True,
         keep.update(qf=qf, gf=gf)
     return evaluate_features(qf, gf, query, gallery, cfg, rerank=rerank,
                              verbose=verbose, timing=timing, keep=keep,
-                             attribute_dist=attribute_dist)
+                             attribute_dist=attribute_dist, mesh=mesh)

@@ -10,6 +10,10 @@
 import sys
 
 from .cli import inference_main
+from .parallel import close_process_group
 
 if __name__ == "__main__":
-    inference_main(sys.argv[1:], device="cuda")
+    try:
+        inference_main(sys.argv[1:], device="cuda")
+    finally:
+        close_process_group()

@@ -13,6 +13,10 @@ The checkpoint is written to checkpoint/cnn_net_checkpoint_{dataset}.npz
 import sys
 
 from .cli import train_main
+from .parallel import close_process_group
 
 if __name__ == "__main__":
-    train_main(sys.argv[1:], device="cuda")
+    try:
+        train_main(sys.argv[1:], device="cuda")
+    finally:
+        close_process_group()

@@ -22,6 +22,7 @@ input and kernel to `dtype`, norms and pooling compute in f32 and return
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -62,7 +63,8 @@ class Conv2d(nn.Conv2d):
     """Conv on NHWC activations (flax `nn.Conv` semantics), bias-free
     unless `bias`; a bias is added in `dtype`, as flax adds it. `groups`
     is flax's `feature_group_count`: a depthwise conv (groups = Cin =
-    Cout) has flax's kernel (kh, kw, 1, C), here (C, 1, kh, kw).
+    Cout) has flax's kernel (kh, kw, 1, C), here (C, 1, kh, kw);
+    `dilation` is flax's `kernel_dilation`.
 
     `keep_f32`: the result is read in f32 (a BatchNorm follows, or the
     caller casts it to f32), and the compiled JAX program then skips the
@@ -79,9 +81,9 @@ class Conv2d(nn.Conv2d):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, dtype=torch.float32, bias: bool = False,
                  keep_f32: bool = False, groups: int = 1,
-                 f32_sum: bool = False):
+                 f32_sum: bool = False, dilation: int = 1):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding,
-                         bias=bias, groups=groups)
+                         bias=bias, groups=groups, dilation=dilation)
         self.dtype = dtype
         self.keep_f32 = keep_f32
         self.f32_sum = f32_sum
@@ -98,23 +100,20 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2).to(self.dtype)
-        g = self.groups
+        kw = dict(stride=self.stride, padding=self.padding,
+                  dilation=self.dilation, groups=self.groups)
         w = self.weight.to(self.dtype)
         if self.keep_f32 and self.dtype != torch.float32:
             # TF32 holds a bf16 value exactly and multiplies two exactly,
             # so on the card the f32 conv of these operands may take the
             # TF32 tensor cores without changing what it computes
             with _tf32_convs():
-                y = F.conv2d(x.to(torch.float32), w.to(torch.float32),
-                             stride=self.stride, padding=self.padding,
-                             groups=g)
+                y = F.conv2d(x.to(torch.float32), w.to(torch.float32), **kw)
         elif self.f32_sum and x.device.type == "cpu":
             y = F.conv2d(x.to(torch.float32), w.to(torch.float32),
-                         stride=self.stride, padding=self.padding,
-                         groups=g).to(self.dtype)
+                         **kw).to(self.dtype)
         else:
-            y = F.conv2d(x, w, stride=self.stride, padding=self.padding,
-                         groups=g)
+            y = F.conv2d(x, w, **kw)
         y = y.permute(0, 2, 3, 1)
         if self.bias is None:
             return y
@@ -305,6 +304,39 @@ class Linear(nn.Linear):
         return F.linear(x, w)
 
 
+# The process group whose ranks hold one global batch between them, while a
+# data-parallel train step runs (`global_batch_stats`); None: this
+# process's batch is the whole batch.
+_STATS_GROUP = None
+
+
+@contextlib.contextmanager
+def global_batch_stats(group):
+    """Within the block, train-mode BatchNorm and BatchRenorm take their
+    statistics over the global batch of `group`'s ranks, as a mean over a
+    batch-sharded array is a global mean under GSPMD (JAX mesh.py:11-12).
+    `group` None (a mesh of size 1) leaves them as they are."""
+    global _STATS_GROUP
+    prev, _STATS_GROUP = _STATS_GROUP, group
+    try:
+        yield
+    finally:
+        _STATS_GROUP = prev
+
+
+def _global_mean(xf: torch.Tensor, dims, *more: torch.Tensor):
+    """Per-channel means over `dims` of the global batch, of `xf` and of
+    each of `more` (same shape): one all-reduce of the local sums and the
+    local count, through `torch.distributed.nn.functional.all_reduce` so
+    that the gradient flows back to every rank's term."""
+    import torch.distributed.nn.functional as dnn
+    c = xf.shape[-1]
+    count = torch.full((1,), float(xf.numel() // c), device=xf.device)
+    s = dnn.all_reduce(torch.cat([t.sum(dims) for t in (xf, *more)]
+                                 + [count]), group=_STATS_GROUP)
+    return [s[i * c:(i + 1) * c] / s[-1] for i in range(1 + len(more))]
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis (flax `nn.BatchNorm`, momentum 0.9
     unless `momentum`): f32 arithmetic, output in `dtype`.
@@ -314,9 +346,12 @@ class BatchNorm(nn.Module):
     batch statistics as flax 0.12's `_compute_stats` does: in f32 over
     every axis but the last, mean and E[x^2], var = max(E[x^2] - mean^2,
     0), biased; it normalizes with them and folds the same biased var into
-    the running var (ra = m ra + (1 - m) batch). `F.batch_norm` folds the
-    unbiased var and is not used. `use_scale` / `use_bias` False drop the
-    scale / the bias, as flax's flags do."""
+    the running var (ra = m ra + (1 - m) batch). Under
+    `global_batch_stats` the mean and E[x^2] are those of the global
+    batch: one all-reduce of the sums, the sums of squares and the count.
+    `F.batch_norm` (and `nn.SyncBatchNorm`) fold the unbiased var and are
+    not used. `use_scale` / `use_bias` False drop the scale / the bias, as
+    flax's flags do."""
 
     def __init__(self, c: int, use_bias: bool = True, eps: float = 1e-5,
                  dtype=torch.float32, momentum: float = 0.9,
@@ -334,9 +369,11 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp(torch.mean(xf * xf, dims) - mean * mean,
-                              min=0.0)
+            if _STATS_GROUP is None:
+                mean, mean2 = xf.mean(dims), torch.mean(xf * xf, dims)
+            else:
+                mean, mean2 = _global_mean(xf, dims, xf * xf)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -372,7 +409,8 @@ class BatchRenorm(nn.Module):
     m batch with m = 0.01 (the opposite convention of flax's BatchNorm
     momentum) and the int32 `steps` buffer counts the call, all in place on
     the device. Eval: (x - ra_mean) * rsqrt(ra_var + eps), then * scale +
-    bias."""
+    bias. Under `global_batch_stats` the mean and the two-pass variance
+    are the global batch's (two all-reduces)."""
 
     momentum, eps = 0.01, 1e-5
     r_max_final, d_max_final, warmup_steps = 3.0, 5.0, 500
@@ -407,8 +445,12 @@ class BatchRenorm(nn.Module):
                                                        + self.eps)
         else:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = torch.square(xf - mean).mean(dims)
+            if _STATS_GROUP is None:
+                mean = xf.mean(dims)
+                var = torch.square(xf - mean).mean(dims)
+            else:
+                mean, = _global_mean(xf, dims)
+                var, = _global_mean(torch.square(xf - mean), dims)
             std = torch.sqrt(var + self.eps)
             with torch.no_grad():
                 ra_std = torch.sqrt(self.running_var + self.eps)
@@ -449,6 +491,10 @@ class BatchRenormNonIID(BatchRenorm):
             var = (1 - a) * self.running_var + a * inst_var
             y = (xf - mean) * torch.rsqrt(var + self.eps)
             return (y * self.weight + self.bias).to(self.dtype)
+        if _STATS_GROUP is not None:
+            raise NotImplementedError(
+                "BatchRenormNonIID has no global-batch form; no "
+                "data-parallel loop trains it")
         k = min(self.group_size, b)
         g = b // k
         xg = xf[:g * k].reshape(g, k, h, w, c)

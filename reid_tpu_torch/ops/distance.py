@@ -24,7 +24,7 @@ first, as `jax.lax.top_k` returns them. No query row is padded.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -149,15 +149,20 @@ def pairwise_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def topk_neighbors(query: torch.Tensor, gallery: torch.Tensor, k: int,
-                   block_q: int = 1024) -> Tuple[torch.Tensor, torch.Tensor]:
+                   block_q: int = 1024, self_first: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest gallery rows per query by squared Euclidean distance:
     (dists (Q, k) ascending, idx (Q, k) int64), blocked over `block_q`
-    queries."""
+    queries. With `self_first`, query row i is gallery row self_first + i
+    and is ranked first whatever its distance (which then reads -inf)."""
     if k > gallery.shape[0]:
         raise ValueError(f"k = {k} > {gallery.shape[0]} gallery rows")
     dists, idxs = [], []
     for s in range(0, query.shape[0], block_q):
         dist = pairwise_sqeuclidean(query[s:s + block_q], gallery)
+        if self_first is not None:
+            i = torch.arange(dist.shape[0], device=dist.device)
+            dist[i, self_first + s + i] = float("-inf")
         vals, idx = torch.sort(dist, dim=1, stable=True)
         del dist
         dists.append(vals[:, :k].clone())

@@ -1,9 +1,9 @@
-"""k-reciprocal Jaccard re-ranking (Zhong et al., CVPR'17), single device.
+"""k-reciprocal Jaccard re-ranking (Zhong et al., CVPR'17).
 
 Counterpart of `reid_tpu/ops/rerank.py` (`compute_jaccard_distance`,
 `compute_jaccard_distance_ivf`, `_jaccard_from_rank`, `_minsum_topk_rows`,
-`jaccard_distance`; the mesh variant comes with the port of
-`reid_tpu/parallel/`). The steps are the reference's:
+`jaccard_distance`, and `compute_jaccard_distance_sharded`, the mesh
+variant over a `parallel.Mesh`). The steps are the reference's:
 
   1. initial ranking       -> `topk_neighbors` (kernel K6), or the IVF
                               approximate ranking (`ops/ivf.py`)
@@ -65,22 +65,31 @@ def _minsum_topk_rows(v_rows: torch.Tensor, v_all: torch.Tensor, s: int
     return out
 
 
-def _v_encoding(feats: torch.Tensor, initial_rank: torch.Tensor, k1: int,
-                k2: int, stages: StageTimer) -> torch.Tensor:
-    """Steps 2-5: the (N, N) V encoding, rows summing to 1, from unit-norm
-    features and their top-k1 ranking; marks masks, overlap, v and
-    expansion on `stages`."""
+def _v_rows(feats: torch.Tensor, initial_rank: torch.Tensor, k1: int,
+           r0: int, m: int, stages: StageTimer) -> torch.Tensor:
+    """Steps 2-4 for the rows [r0, r0 + m): the (m, N) rows of V, each
+    summing to 1, from unit-norm features and the whole (N, k1) ranking;
+    marks masks, overlap and v on `stages`. Every rank of the sharded
+    path holds the (N, N) half-size reciprocal masks; the rest is (m, N).
+    With r0 = 0 and m = N it is the dense single-device step."""
     n = feats.shape[0]
     k_half = int(round(k1 / 2))          # Python's round: half to even
     dev = feats.device
     mm = torch.float16 if dev.type == "cuda" else torch.float32
 
-    # k-reciprocal masks: R[i,j] = j in top(i) and i in top(j)
-    f = _topk_mask(initial_rank, n)
-    r_full = f & f.T
+    # k-reciprocal masks: R[i,j] = j in top(i) and i in top(j); the
+    # transpose half of R's rows is scattered from the rankings that
+    # hold one of these rows
     f = _topk_mask(initial_rank[:, :k_half + 1], n)
     r_half = f & f.T
     del f
+    r_full = _topk_mask(initial_rank[r0:r0 + m], n)
+    ft = torch.zeros((m, n), dtype=torch.bool, device=dev)
+    j = torch.arange(n, device=dev)[:, None].expand(n, k1)
+    own = (initial_rank >= r0) & (initial_rank < r0 + m)
+    ft[initial_rank[own] - r0, j[own]] = True
+    r_full &= ft
+    del ft, j, own
     stages.mark("masks")
 
     # local expansion: candidate c of R[i] contributes R_h[c] when
@@ -88,9 +97,7 @@ def _v_encoding(feats: torch.Tensor, initial_rank: torch.Tensor, k1: int,
     rh = r_half.to(mm)
     sizes_h = r_half.sum(1).to(torch.float32)
     del r_half
-    rf = r_full.to(mm)
-    overlap = rf @ rh.T                                   # (i, c), exact
-    del rf
+    overlap = r_full.to(mm) @ rh.T                        # (i, c), exact
     thresh = torch.tensor(2.0 / 3.0, dtype=torch.float32, device=dev) \
         * sizes_h
     cond = r_full & (overlap > thresh[None, :])
@@ -103,25 +110,30 @@ def _v_encoding(feats: torch.Tensor, initial_rank: torch.Tensor, k1: int,
 
     # V: softmax of 2*sim over the expansion set; -dist = 2*sim - 2 and
     # the constant cancels inside the softmax
-    logits = feats @ feats.T
+    logits = feats[r0:r0 + m] @ feats.T
     logits.mul_(2.0).masked_fill_(~expansion, float("-inf"))
     del expansion
     v = torch.softmax(logits, dim=1)
     del logits
     stages.mark("v")
-
-    # query expansion over the k2 original neighbours
-    if k2 != 1:
-        nb = torch.sort(initial_rank[:, :k2], dim=1).values
-        acc = v.index_select(0, nb[:, 0])
-        for c in range(1, k2):
-            acc += v.index_select(0, nb[:, c])
-        del v
-        v = acc.div_(k2)
-        # the min-sum identity below needs row sums of exactly 1
-        v.div_(v.sum(1, keepdim=True))
-    stages.mark("expansion")
     return v
+
+
+def _query_expansion(v: torch.Tensor, initial_rank: torch.Tensor,
+                     k2: int) -> torch.Tensor:
+    """Step 5: each row of V replaced by the mean of the V rows of its k2
+    first neighbours, summed in ascending neighbour index, then
+    renormalized (the min-sum identity needs row sums of exactly 1).
+    Consumes `v` where it makes a new tensor."""
+    if k2 == 1:
+        return v
+    nb = torch.sort(initial_rank[:, :k2], dim=1).values
+    acc = v.index_select(0, nb[:, 0])
+    for c in range(1, k2):
+        acc += v.index_select(0, nb[:, c])
+    del v
+    acc.div_(k2)
+    return acc.div_(acc.sum(1, keepdim=True))
 
 
 def _jaccard_from_rank(feats: torch.Tensor, initial_rank: torch.Tensor,
@@ -131,22 +143,33 @@ def _jaccard_from_rank(feats: torch.Tensor, initial_rank: torch.Tensor,
     `timing`, the seconds of its steps go there: masks, overlap (the two
     0/1 products), v, expansion (k2), minsum (with the final J)."""
     stages = StageTimer(timing, feats.device)
-    n = feats.shape[0]
-    v = _v_encoding(feats, initial_rank, k1, k2, stages)
+    v = _v_rows(feats, initial_rank, k1, 0, feats.shape[0], stages)
+    v = _query_expansion(v, initial_rank, k2)
+    stages.mark("expansion")
 
     # min-sum: the L1 identity, or the top-S sparse gather while it is
     # exact (every V row with at most S nonzeros; one host read)
-    if sparse_s is not None and sparse_s < n and \
-            int((v > 0.0).sum(1).max()) <= sparse_s:
-        tm = _minsum_topk_rows(v, v, sparse_s)
-    else:
-        tm = pairwise_l1(v, v).mul_(-0.5).add_(1.0)
+    jac = _minsum_jaccard(v, v, sparse_s)
     del v
-    jac = 2.0 - tm
-    torch.div(tm, jac, out=jac)
-    jac.neg_().add_(1.0).clamp_(min=0.0)
     stages.mark("minsum")
     return jac
+
+
+def _minsum_jaccard(v_rows: torch.Tensor, v_all: torch.Tensor,
+                    sparse_s: Optional[int]) -> torch.Tensor:
+    """Steps 6-7 for a block of rows: the min-sum against every row of V,
+    by the L1 identity (K7 on the (rows, N) slab) or the top-S sparse
+    gather while it is exact for these rows (at most S nonzeros in each;
+    one host read), then J = max(1 - tm / (2 - tm), 0)."""
+    n = v_all.shape[0]
+    if sparse_s is not None and sparse_s < n and \
+            int((v_rows > 0.0).sum(1).max()) <= sparse_s:
+        tm = _minsum_topk_rows(v_rows, v_all, sparse_s)
+    else:
+        tm = pairwise_l1(v_rows, v_all).mul_(-0.5).add_(1.0)
+    jac = 2.0 - tm
+    torch.div(tm, jac, out=jac)
+    return jac.neg_().add_(1.0).clamp_(min=0.0)
 
 
 def compute_jaccard_distance(features: torch.Tensor, k1: int = 20,
@@ -198,25 +221,109 @@ def compute_jaccard_distance_ivf(
                               sparse_s=sparse_s, timing=timing)
 
 
+def compute_jaccard_distance_sharded(
+        mesh, features: torch.Tensor, k1: int = 20, k2: int = 6,
+        sparse_s: Optional[int] = None,
+        timing: Optional[dict] = None) -> torch.Tensor:
+    """Row-sharded Jaccard over the ranks of `mesh`
+    (`reid_tpu/ops/rerank.py:190-311`): every (N, N) intermediate of this
+    rank's rows lives as an (N/p, N) block; every rank holds the
+    features, the (N, k1) ranking and the half-size reciprocal masks.
+
+    Arbitrary N: the rows are zero-padded to a multiple of p; a padded
+    row is in no real row's ranking or reciprocal set and its V and J
+    rows are zero, and the result is sliced back to (N, N). The columns
+    are never padded, so every column reduction (the softmax, the
+    min-sum, the L1 over V) has the same length at every world size,
+    and world p is bit-equal to world 1 (and world 1 to
+    `compute_jaccard_distance` where the ranking has no ties). Each rank
+    ranks its rows by the squared distance (K6 on the (N/p, N) block)
+    with itself first, as JAX's sharded path ranks by similarity with
+    itself first; the rankings are all-gathered (N x k1 indices). It
+    builds its rows of the k-reciprocal and expansion masks and of V
+    (`_v_rows`, the dense path's body on a row block); one all_gather of V gives every rank the whole V, the k2 query
+    expansion runs on it, and each rank takes the min-sum of its rows
+    against all of V: K7's (N/p, N) x (N, N) slab, or the top-S sparse
+    gather under the per-shard exactness guard (the dense L1 where a
+    local row has more than S nonzeros). The (N/p, N) blocks of J are
+    all-gathered, so every rank returns the whole matrix. Without a
+    process group (`mesh` None or groupless) it is the same program
+    without collectives; a one-rank group runs them as identities.
+    `timing` gets
+    the seconds of topk, masks, overlap, v, gather, expansion, minsum
+    and gather_j."""
+    from ..parallel.mesh import all_gather_rows
+
+    n = features.shape[0]
+    p = 1 if mesh is None else mesh.size
+    rank = 0 if mesh is None else mesh.rank
+    dev = features.device
+    stages = StageTimer(timing, dev)
+    feats = features.to(torch.float32)
+    feats = feats / torch.clamp(torch.linalg.norm(feats, dim=1, keepdim=True),
+                                min=1e-12)
+    per = -(-n // p)
+    r0 = rank * per
+    m = max(min(per, n - r0), 0)             # this rank's real rows
+
+    def padded(t):
+        """This rank's (m, ...) rows padded with zero rows to `per`."""
+        if m == per:
+            return t
+        return torch.cat([t, t.new_zeros((per - m, *t.shape[1:]))])
+
+    # this rank's ranking, itself first; the rankings all-gathered
+    _, rank_rows = topk_neighbors(feats[r0:r0 + m], feats, k1,
+                                  self_first=r0)
+    initial_rank = all_gather_rows(padded(rank_rows).contiguous(),
+                                   mesh)[:n]                  # (N, k1)
+    stages.mark("topk")
+    v_rows = padded(_v_rows(feats, initial_rank, k1, r0, m, stages))
+    v = all_gather_rows(v_rows, mesh)[:n]                 # (N, N)
+    del v_rows
+    stages.mark("gather")
+    v = _query_expansion(v, initial_rank, k2)
+    stages.mark("expansion")
+    jac = padded(_minsum_jaccard(v[r0:r0 + m], v, sparse_s) if m
+                 else v.new_zeros((0, n)))
+    del v
+    stages.mark("minsum")
+    jac = all_gather_rows(jac, mesh)[:n]
+    stages.mark("gather_j")
+    return jac
+
+
 def jaccard_distance(features: torch.Tensor, k1: int = 20, k2: int = 6,
                      sparse_s: Optional[int] = None,
                      search_option: Optional[str] = None,
-                     timing: Optional[dict] = None) -> torch.Tensor:
+                     timing: Optional[dict] = None,
+                     mesh=None) -> torch.Tensor:
     """The dispatcher `eval/inference.py` calls. `search_option` applies
     the gallery-size policy (ops/policy.py): "auto" picks dense or top-S
     sparse by N; "dense" and "sparse" force one. None keeps the legacy
     behaviour (dense unless `sparse_s` is given); "ivf" takes the IVF
     ranking with the plan's nlist and nprobe. `timing` gets the seconds of
-    each step (topk, then `_jaccard_from_rank`'s)."""
+    each step (topk, then `_jaccard_from_rank`'s). With a `mesh` of more
+    than one rank (as in the JAX package; a one-rank group runs the
+    single-device path), the row-sharded path (`compute_jaccard_distance_sharded`)
+    runs instead, the policy's ceilings scaled by the ranks; it has no IVF
+    variant, so "ivf" there degrades to the sharded top-S sparse min-sum
+    (each rank already holds N/p rows), as in the JAX package."""
+    multi = mesh is not None and mesh.size > 1
     if search_option is not None:
         from .policy import choose_search
         plan = choose_search(int(features.shape[0]), search_option,
-                             sparse_s or 0)
-        if plan.strategy == "ivf":
+                             sparse_s or 0,
+                             n_devices=mesh.size if multi else 1)
+        if plan.strategy == "ivf" and not multi:
             return compute_jaccard_distance_ivf(
                 features, k1=k1, k2=k2, sparse_s=plan.sparse_s,
                 nlist=plan.nlist, nprobe=plan.nprobe, timing=timing)
         sparse_s = plan.sparse_s
+    if multi:
+        return compute_jaccard_distance_sharded(mesh, features, k1=k1, k2=k2,
+                                                sparse_s=sparse_s,
+                                                timing=timing)
     return compute_jaccard_distance(features, k1=k1, k2=k2,
                                     sparse_s=sparse_s, timing=timing)
 

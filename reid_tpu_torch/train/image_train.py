@@ -1,7 +1,8 @@
 """Image-ReID training and whole-dataset embedding of the port.
 
 Counterpart of `reid_tpu/train/image_train.py` (ref
-`reid/image_reid_train.py`) on one device:
+`reid/image_reid_train.py`), on one device or data-parallel over a
+`parallel.Mesh` (`mesh=`, the JAX package's GSPMD data parallelism):
   * `train_cnn` (ref :39-112): PK loader, device augmentation, the hybrid
     loss, the epoch-0 DCC seeding from class-mean logits
     (`seed_dcc_luts`, ref generate_centers :70-74), and the `.npz`
@@ -73,17 +74,33 @@ def checkpoint_path(ckpt_dir: str, dataset: str) -> str:
 def train_cnn(cfg: Config, dataset: ReIDDataset,
               state: Optional[ReIDTrainState] = None, use_xbm: bool = False,
               log_every: int = 50, ckpt_dir: str = "checkpoint",
-              ckpt: str = "", device="cuda") -> Tuple[ReIDTrainState, list]:
-    """The train loop (ref train_cnn :39-112 and its XBM variant) on one
-    device. Without `state`, a fresh one: the model and the centers drawn
-    from a generator seeded `cfg.train.seed`, the model warm-started from
-    the `.npz` `ckpt` when given (ref --ckpt, :42-45). Each step's
+              ckpt: str = "", device="cuda", mesh=None
+              ) -> Tuple[ReIDTrainState, list]:
+    """The train loop (ref train_cnn :39-112 and its XBM variant). Without
+    `state`, a fresh one: the model and the centers drawn from a
+    generator seeded `cfg.train.seed`, the model warm-started from the
+    `.npz` `ckpt` when given (ref --ckpt, :42-45). Each step's
     augmentation draws come from a device generator seeded seed + 1. The
     loss is read back every `log_every` steps (the only host read of the
-    loop) and returned; the checkpoint goes to `ckpt_dir`."""
+    loop) and returned; the checkpoint goes to `ckpt_dir`.
+
+    With a `parallel.Mesh` of p > 1 ranks (B divisible by p), the loop is
+    data parallel and each step equals the step at world 1: every rank
+    starts from rank 0's model and tables (`replicate`), draws the same
+    PK epoch and loads its rows of each batch (`make_train_loader(shard=)`),
+    and runs `make_train_step(mesh=)`; only rank 0 writes the
+    checkpoint."""
+    from ..parallel.mesh import replicate
     from ..utils.flax_bridge import (flax_variables, load_flax_variables,
                                      save_npz)
 
+    dp = mesh is not None and mesh.collective
+    if dp and not mesh.member:
+        raise ValueError("this rank is outside the mesh (fit_mesh keeps the "
+                         "first ranks whose count divides the batch)")
+    if dp and cfg.train.batch_size % mesh.size:
+        raise ValueError(f"batch_size {cfg.train.batch_size} not divisible "
+                         f"by mesh size {mesh.size}")
     bs = cfg.train.batch_size
     steps_per_epoch = max(len(dataset) // bs, 1)
     if state is None:
@@ -98,9 +115,14 @@ def train_cnn(cfg: Config, dataset: ReIDDataset,
             load_flax_variables(model, ckpt)
         state = create_train_state(model, cfg, steps_per_epoch, gen)
     dev = next(state.model.parameters()).device
+    if dp:
+        replicate(mesh, state.model)
+        replicate(mesh, [state.loss_state.centers, *state.loss_state.dcc])
     train_step = make_train_step(
         cfg, use_xbm_gate=use_xbm,
-        generator=torch.Generator(dev).manual_seed(cfg.train.seed + 1))
+        generator=torch.Generator(dev).manual_seed(cfg.train.seed + 1),
+        mesh=mesh)
+    shard = (mesh.rank, mesh.size) if dp else (0, 1)
 
     loss_stats = []
     for epoch in range(cfg.train.epochs):
@@ -108,7 +130,7 @@ def train_cnn(cfg: Config, dataset: ReIDDataset,
             state = seed_dcc_luts(state, dataset, bs, cfg.model.num_classes)
         loader = make_train_loader(dataset, bs, cfg.train.num_instances,
                                    seed=cfg.train.seed, epoch=epoch,
-                                   device=dev)
+                                   device=dev, shard=shard)
         t0 = time.time()
         for i, batch in enumerate(loader):
             step_batch = {"images": batch["images"],
@@ -118,16 +140,18 @@ def train_cnn(cfg: Config, dataset: ReIDDataset,
             # the continual phase weighs every batch (ref :452): real
             # samples 0, pseudo 1, over the batch size
             if dataset.cross_domain:
-                step_batch["weights"] = _continual_weights(batch["weights"])
+                step_batch["weights"] = _continual_weights(batch["weights"],
+                                                           bs)
             state, metrics = train_step(state, step_batch)
             if i % log_every == 0:
                 loss = float(metrics["loss"])
                 loss_stats.append(loss)
                 print(f"epoch {epoch} step {i}: loss={loss:.4f} "
                       f"({time.time() - t0:.0f}s)", flush=True)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    save_npz(checkpoint_path(ckpt_dir, cfg.data.dataset),
-             flax_variables(state.model))
+    if not dp or mesh.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        save_npz(checkpoint_path(ckpt_dir, cfg.data.dataset),
+                 flax_variables(state.model))
     return state, loss_stats
 
 
@@ -145,15 +169,16 @@ def extract_embeddings(model, dataset: ReIDDataset, batch_size: int,
     return torch.cat(feats)[:len(dataset)]
 
 
-def _continual_weights(flags: torch.Tensor) -> torch.Tensor:
+def _continual_weights(flags: torch.Tensor, batch_size: int
+                       ) -> torch.Tensor:
     """Per-sample weights of the continual phase: flag 0 for real
-    (source) samples, 1 for pseudo (data_prepare.py:88-89), over the batch
-    size (image_reid_train.py:452)."""
-    return flags.to(torch.float32) / flags.shape[0]
+    (source) samples, 1 for pseudo (data_prepare.py:88-89), over the
+    (global) batch size (image_reid_train.py:452)."""
+    return flags.to(torch.float32) / batch_size
 
 
 def produce_pseudo_data(state: ReIDTrainState, target_dataset: ReIDDataset,
-                        cfg: Config, min_yield: float = 0.2
+                        cfg: Config, min_yield: float = 0.2, mesh=None
                         ) -> Tuple[list, np.ndarray, int]:
     """Pseudo-label a target-domain train set (ref :342-402): TTA embed ->
     camera de-bias -> Jaccard (`ops.rerank.jaccard_distance` with the
@@ -161,7 +186,10 @@ def produce_pseudo_data(state: ReIDTrainState, target_dataset: ReIDDataset,
     records (pids offset by the source class count), the cluster
     centroids and the number of clusters; refuses a clustering with fewer
     clusters than `min_yield` of the target's train ids (ref
-    image_reid_inference.py:304)."""
+    image_reid_inference.py:304). With a `mesh` of several ranks, every
+    rank embeds the whole set and the Jaccard runs row-sharded
+    (`compute_jaccard_distance_sharded`); every rank gets the same
+    records."""
     from ..cli import full_f32
     from ..ops.camera import diminish_camera_bias
     from ..ops.dbscan import dbscan_precomputed
@@ -178,7 +206,8 @@ def produce_pseudo_data(state: ReIDTrainState, target_dataset: ReIDDataset,
                                    + 1)
         jac = jaccard_distance(emb, k1=r.k1, k2=r.k2,
                                sparse_s=r.rerank_sparse_s or None,
-                               search_option=r.search_option)
+                               search_option=r.search_option,
+                               mesh=mesh)
         jac = jac.cpu().numpy()
     emb = emb.cpu().numpy()
     labels = dbscan_precomputed(jac, eps=r.dbscan_eps,
@@ -256,8 +285,8 @@ def expand_classifier(state: ReIDTrainState, cfg: Config, num_new: int,
 def train_continual(cfg: Config, state: ReIDTrainState,
                     source_dataset: ReIDDataset, target_records: list,
                     centroids: np.ndarray, num_new: int, epochs: int = 40,
-                    log_every: int = 50, ckpt_dir: str = "checkpoint"
-                    ) -> Tuple[ReIDTrainState, list]:
+                    log_every: int = 50, ckpt_dir: str = "checkpoint",
+                    mesh=None) -> Tuple[ReIDTrainState, list]:
     """The continual phase (ref train_cnn_continual :405-479): merge the
     pseudo records into the source dataset, widen the classifier, and
     train with the weighted hybrid loss plus the smoothed CE (tao 2) at
@@ -272,4 +301,4 @@ def train_continual(cfg: Config, state: ReIDTrainState,
     state.tx, state.center_tx = make_optimizers(
         cfg, max(len(source_dataset) // cfg.train.batch_size, 1))
     return train_cnn(cfg, source_dataset, state=state, log_every=log_every,
-                     ckpt_dir=ckpt_dir)
+                     ckpt_dir=ckpt_dir, mesh=mesh)

@@ -22,8 +22,15 @@ from ..models.factory import TRANSFORMERS
 from .state import ReIDTrainState
 
 
+def _rows(tree, rows: slice):
+    """These rows of every tensor of a (nested) dict of draws."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, rows) for k, v in tree.items()}
+    return tree[rows]
+
+
 def make_train_step(cfg: Config, use_xbm_gate: bool = False,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None, mesh=None):
     """train_step(state, batch) -> (state, metrics), updating `state` in
     place. In order: the augmentation of uint8 images (draws from
     `generator`, or the batch's own "aug_draws"); the train-mode forward,
@@ -43,7 +50,24 @@ def make_train_step(cfg: Config, use_xbm_gate: bool = False,
     instances in a batch, which bounds the DCC table's rounds without a
     host read; without PK sampling the bound is B (the rounds past a
     batch's largest class write only the table's spare row), as in
-    `plr_train`."""
+    `plr_train`.
+
+    Data parallel over a `parallel.Mesh` of more than one rank: `batch`
+    holds this rank's rows (`parallel.place_batch`) and the step is the
+    step of the global batch. The augmentation draws are made for the
+    global batch (the generators of all ranks agree) and sliced; the
+    forward runs under `global_batch_stats`; the f32 feature and logits
+    are all-gathered with autograd, with the labels and weights, so the
+    hybrid loss, the batch-hard mining, the center, DCC and XBM terms
+    and the table updates see the global batch on every rank; the
+    parameter gradients are summed over the ranks and scaled
+    (`parallel.all_reduce_mean_grads`), the center gradient is already
+    the global one. Every rank then holds the same state."""
+    from ..models.layers import global_batch_stats
+    from ..parallel.mesh import all_gather_rows, all_reduce_mean_grads
+
+    dp = mesh is not None and mesh.collective
+    group = mesh.stats_group if dp else None
     k = cfg.train.num_instances
     rounds = k if k > 0 and cfg.train.batch_size % k == 0 else None
     transformer = cfg.model.backbone in TRANSFORMERS
@@ -52,24 +76,36 @@ def make_train_step(cfg: Config, use_xbm_gate: bool = False,
 
     def train_step(state: ReIDTrainState, batch: dict):
         images, labels = batch["images"], batch["labels"]
+        weights = batch.get("weights")
         if images.dtype == torch.uint8:
             draws = batch.get("aug_draws")
             if draws is None:
                 b, h, w, _ = images.shape
-                draws = augment_draws(generator, b, h, w, pad=cfg.data.pad,
-                                      device=images.device)
+                draws = augment_draws(
+                    generator, b * (mesh.size if dp else 1), h, w,
+                    pad=cfg.data.pad, device=images.device)
+            if dp:
+                draws = _rows(draws, mesh.rows(
+                    draws["flip_u"].shape[0]))
             images = augment_apply(images, draws, pad=cfg.data.pad,
                                    flip_prob=cfg.data.flip_prob,
                                    erase_prob=cfg.data.random_erasing_prob)
-        feature, logits = state.model(
-            images, batch.get("cams") if use_cam else None, train=True,
-            **drop)
+        with global_batch_stats(group):
+            feature, logits = state.model(
+                images, batch.get("cams") if use_cam else None, train=True,
+                **drop)
         feature = feature.to(torch.float32)
         logits = logits.to(torch.float32)
+        if dp:
+            feature = all_gather_rows(feature, mesh, grad=True)
+            logits = all_gather_rows(logits, mesh, grad=True)
+            labels = all_gather_rows(labels, mesh)
+            if weights is not None:
+                weights = all_gather_rows(weights, mesh)
         centers = state.loss_state.centers.detach().requires_grad_()
         total, aux = hybrid_loss(
             state.loss_state._replace(centers=centers), feature, logits,
-            labels, cfg.loss, weights=batch.get("weights"))
+            labels, cfg.loss, weights=weights)
         if use_xbm_gate and state.xbm is not None:
             xbm_l = xbm_triplet_loss(feature, labels, state.xbm)
             if batch.get("xbm_active", True):
@@ -79,7 +115,8 @@ def make_train_step(cfg: Config, use_xbm_gate: bool = False,
         grads = torch.autograd.grad(total, params + [centers],
                                     allow_unused=True,
                                     materialize_grads=True)
-        state.tx.apply(params, grads[:-1], state.opt_state)
+        state.tx.apply(params, all_reduce_mean_grads(grads[:-1], mesh),
+                       state.opt_state)
         new_centers = state.center_tx.apply(centers.detach(), grads[-1])
         dcc = state.loss_state.dcc
         if cfg.loss.use_dcc:

@@ -13,9 +13,12 @@ seeds or updates them), MADGRAD(1e-4, weight decay 5e-4, momentum 0)
 without a gradient clip under the staircase StepLR(300, 0.5), and the
 centers by c - 0.5 gc / lamda.
 
-`train_video` runs on one device; the JAX package's mesh form (its
-`fit_mesh` / `replicate` / `place_batch`) waits for the port of
-`parallel/`.
+`train_video` runs on one device, or data-parallel over a
+`parallel.Mesh` (`mesh=`, the JAX package's `fit_mesh` / `replicate` /
+`place_batch` form): every rank draws the same batches and keeps its
+rows, the 3-D BatchNorms take global statistics, and the loss runs on
+the all-gathered global batch, so a step at world p is the step at
+world 1 (as `train.steps.make_train_step(mesh=)`).
 """
 
 from __future__ import annotations
@@ -157,7 +160,7 @@ def create_video_train_state(model: torch.nn.Module, num_classes: int,
         opt_state=tx.init(list(model.parameters())), tx=tx)
 
 
-def make_video_train_step(cfg: Config):
+def make_video_train_step(cfg: Config, mesh=None):
     """step(state, batch) -> (state, loss), updating `state` in place: the
     train-mode forward (which updates the BatchNorm statistics), the
     hybrid loss on the f32 feature and logits with the DCC tables as they
@@ -165,21 +168,36 @@ def make_video_train_step(cfg: Config):
     centers' step c - 0.5 gc / lamda, the division by the constant lamda
     a multiplication by its f32 reciprocal as XLA compiles it. batch:
     images (B, T, H, W, 3) f32 and labels (B,) int32 on the model's
-    device. The loss stays on the device: the step reads nothing back."""
+    device. The loss stays on the device: the step reads nothing back.
+    Over a `mesh` of several ranks, `batch` holds this rank's rows: the
+    forward runs under `global_batch_stats`, the feature, logits and
+    labels are all-gathered (the first two with autograd) and the
+    parameter gradients summed over the ranks and scaled."""
+    from ..models.layers import global_batch_stats
+    from ..parallel.mesh import all_gather_rows, all_reduce_mean_grads
+
     inv_lamda = float(np.float32(1.0) / np.float32(cfg.loss.center_lamda))
+    dp = mesh is not None and mesh.collective
 
     def step(state: VideoTrainState, batch: dict):
-        feature, logits = state.model(batch["images"], train=True)
+        with global_batch_stats(mesh.stats_group if dp else None):
+            feature, logits = state.model(batch["images"], train=True)
+        feature = feature.to(torch.float32)
+        logits = logits.to(torch.float32)
+        labels = batch["labels"]
+        if dp:
+            feature = all_gather_rows(feature, mesh, grad=True)
+            logits = all_gather_rows(logits, mesh, grad=True)
+            labels = all_gather_rows(labels, mesh)
         centers = state.loss_state.centers.detach().requires_grad_()
         total, _ = hybrid_loss(state.loss_state._replace(centers=centers),
-                               feature.to(torch.float32),
-                               logits.to(torch.float32), batch["labels"],
-                               cfg.loss)
+                               feature, logits, labels, cfg.loss)
         params = state.params()
         grads = torch.autograd.grad(total, params + [centers],
                                     allow_unused=True,
                                     materialize_grads=True)
-        state.tx.apply(params, grads[:-1], state.opt_state)
+        state.tx.apply(params, all_reduce_mean_grads(grads[:-1], mesh),
+                       state.opt_state)
         with torch.no_grad():
             new_centers = centers.detach() - (0.5 * grads[-1]) * inv_lamda
         state.loss_state = state.loss_state._replace(centers=new_centers)
@@ -196,8 +214,10 @@ def to_device(batch: dict, device) -> dict:
 
 def train_video(cfg: Config, dataset: VideoTrackletDataset,
                 epochs: int = 25, batch_size: int = 8, seq_len: int = 10,
-                device="cuda") -> Tuple[dict, list]:
-    """Ref train (:110-138) on one device. Returns (variables, losses):
+                device="cuda", mesh=None) -> Tuple[dict, list]:
+    """Ref train (:110-138) on one device, or data-parallel over `mesh`
+    (batch_size divisible by its size; every rank starts from rank 0's
+    model and centers). Returns (variables, losses):
     the flax variable tree of the trained `video_resnet50` (built with one
     class per identity in `cfg.model.dtype`, its init drawn from a
     generator seeded `cfg.train.seed`, the centers from one seeded 1) and
@@ -205,9 +225,14 @@ def train_video(cfg: Config, dataset: VideoTrackletDataset,
     drawn from `numpy.random.default_rng(cfg.train.seed)`, as in the JAX
     package. `seq_len` is the dataset's; the JAX package sizes its init
     batch by it."""
+    from ..parallel.mesh import place_batch, replicate
     from ..utils.flax_bridge import flax_variables
 
     del seq_len
+    dp = mesh is not None and mesh.collective
+    if dp and batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} not divisible by mesh "
+                         f"size {mesh.size}")
     num_classes = len(dataset.labels)
     model = build_model("video_resnet50", num_classes=num_classes,
                         dtype=getattr(torch, cfg.model.dtype), device=device,
@@ -215,12 +240,18 @@ def train_video(cfg: Config, dataset: VideoTrackletDataset,
                             cfg.train.seed))
     state = create_video_train_state(model, num_classes,
                                      torch.Generator().manual_seed(1))
-    step = make_video_train_step(cfg)
+    if dp:
+        replicate(mesh, model)
+        replicate(mesh, [state.loss_state.centers])
+    step = make_video_train_step(cfg, mesh=mesh)
     losses = []
     rng = np.random.default_rng(cfg.train.seed)
     for _ in range(epochs):
         for batch in dataset.batches(batch_size, rng):
-            state, loss = step(state, to_device(batch, device))
+            batch = to_device(batch, device)
+            if dp:
+                batch = place_batch(mesh, batch)
+            state, loss = step(state, batch)
             losses.append(loss)
     losses = torch.stack(losses).tolist() if losses else []
     return flax_variables(model), losses

@@ -13,6 +13,10 @@ Trains the 3-D video ResNet-50 on the tracklets of the gt.txt files
 import sys
 
 from .cli import video_main
+from .parallel import close_process_group
 
 if __name__ == "__main__":
-    video_main(sys.argv[1:], device="cuda")
+    try:
+        video_main(sys.argv[1:], device="cuda")
+    finally:
+        close_process_group()

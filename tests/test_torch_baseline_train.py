@@ -62,7 +62,7 @@ from reid_tpu_torch.utils.flax_bridge import (load_flax_variables,
 from test_torch_baseline import _block_variables, random_variables
 from test_torch_retrieval import write_market_tree
 from test_torch_train_data import (jax_augment_draws,  # noqa: F401
-                                   two_torch_threads)
+                                   place_seeded_luts, two_torch_threads)
 from test_torch_train_step import B, C, H, LABELS, W, close, images
 from test_torch_train_step import jax_state as seres_jax_state
 
@@ -271,9 +271,19 @@ def test_train_main_resnet50_matches_jax(market_tree, tmp_path, monkeypatch):
     monkeypatch.setattr(jcli, "_base_cfg", lambda args: f32(jcfg_of(args)))
     monkeypatch.setattr(cli, "_train_cfg",
                         lambda args, n: f32(tcfg_of(args, n)))
-    # the JAX run: one device, its initial state kept, no orbax write
+    # the JAX run: one device, its initial state kept, no orbax write; its
+    # init is the port's (XLA then compiles no init program)
     monkeypatch.setattr(jparallel, "fit_mesh", lambda bs: make_mesh(1))
     monkeypatch.setattr(jutils, "save_checkpoint", lambda path, s: path)
+    place_seeded_luts(monkeypatch)
+    from reid_tpu.models import build_model as jbuild
+    from reid_tpu_torch.models import build_model as tbuild
+    from reid_tpu_torch.utils.flax_bridge import flax_variables
+    monkeypatch.setattr(
+        type(jbuild("resnet50", num_classes=1)), "init",
+        lambda self, *a, **k: flax_variables(tbuild(
+            "resnet50", num_classes=self.num_classes, device="cpu",
+            generator=torch.Generator().manual_seed(0))))
     initial = []
     jcreate = jimage_train.create_train_state
 

@@ -121,3 +121,27 @@ def test_osnet_slice_module_is_checked(mod):
     walk (no banned import in their source, each imports with JAX
     blocked)."""
     test_training_slice_module_is_checked(mod)
+
+
+PARALLEL_SLICE = ["reid_tpu_torch.parallel", "reid_tpu_torch.parallel.mesh",
+                  "reid_tpu_torch.ops.rerank",
+                  "reid_tpu_torch.tracking.streams",
+                  "reid_tpu_torch.train.video_train",
+                  "reid_tpu_torch.eval.inference",
+                  "reid_tpu_torch.models.deeplab",
+                  "reid_tpu_torch.data.segmentation"]
+
+
+@pytest.mark.parametrize("mod", PARALLEL_SLICE)
+def test_parallel_slice_module_is_checked(mod):
+    """The distributed layer, the modules that take a mesh, DeepLabV3 and
+    the segmentation module are among those the checks above walk (no
+    banned import in their source, each imports with JAX blocked)."""
+    test_training_slice_module_is_checked(mod)
+
+
+def test_rank_programs_import_no_jax():
+    """The gloo ranks of the distributed tests (tests/torch_ranks.py)
+    import neither JAX nor the JAX package."""
+    path = os.path.join(ROOT, "tests", "torch_ranks.py")
+    assert not set(_imported_roots(path)) & set(BANNED)

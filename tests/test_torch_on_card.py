@@ -84,6 +84,14 @@ Tolerances:
     detector within 1e-3 of their largest magnitude; and each GAN step
     and the detector step after two warm-up steps under the sync debug
     mode "error".
+  * the distributed layer at world 1 (one card): the row-sharded Jaccard
+    without a process group against the dense Jaccard on 512 random
+    features (bit-equal, K7 launched once); `train_cnn` on a world-1
+    NCCL group against `train_cnn` without one (three f32 steps,
+    cuDNN deterministic): losses and weights bit for bit.
+  * DeepLabV3 (width 8, head 32) and SegUNet (base 8) in f32, card
+    against CPU with TF32 off: logits within 1e-4 of the CPU's largest;
+    the composite of `batched_extraction` within 1e-4 of its scale.
 """
 
 import numpy as np
@@ -1154,3 +1162,77 @@ def test_lsro_baseline_on_card_matches_cpu(cuda, tf32_off):
     spread = np.linalg.norm(ua - uc) / np.linalg.norm(uc)
     rel = np.linalg.norm(ug - uc) / np.linalg.norm(uc)
     assert rel <= max(1e-3, 2 * spread), (rel, spread)
+
+
+def test_sharded_jaccard_world1_on_card_matches_dense(cuda):
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.ops.rerank import (compute_jaccard_distance,
+                                           compute_jaccard_distance_sharded)
+    f = torch.randn((512, 64), generator=torch.Generator().manual_seed(0))
+    with full_f32():
+        want = compute_jaccard_distance(f.to(cuda), 20, 6)
+        reset_launch_counts()
+        got = compute_jaccard_distance_sharded(None, f.to(cuda), 20, 6)
+        counts = launch_counts()
+    assert torch.equal(got, want)
+    assert counts.get("l1", 0) == 1 and counts.get("sqeuclidean", 0) >= 1
+
+
+def test_train_cnn_nccl_world1_matches_one_device(cuda):
+    import copy
+    import socket
+
+    import reid_tpu_torch.config as tcfg
+    from reid_tpu_torch.data.dataset import synthetic_dataset
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.parallel import default_mesh, init_distributed
+    from reid_tpu_torch.train.image_train import train_cnn
+    from reid_tpu_torch.train.state import create_train_state
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"tcp://127.0.0.1:{port}", 1, 0, device="cuda")
+    det = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True
+        mesh = default_mesh()
+        cfg = tcfg.Config(
+            model=tcfg.ModelConfig(num_classes=4, dtype="float32"),
+            train=tcfg.TrainConfig(batch_size=8, num_instances=2, epochs=1),
+            data=tcfg.DataConfig(height=64, width=32))
+        ds = synthetic_dataset(n=24, num_pids=4, height=64, width=32)
+        gen = torch.Generator().manual_seed(0)
+        model = build_model("seres18", num_classes=4, dtype=torch.float32,
+                            device="cuda", generator=gen)
+        state = create_train_state(model, cfg, 3, gen)
+        out = [train_cnn(cfg, ds, state=copy.deepcopy(state), log_every=1,
+                         device="cuda", ckpt_dir=f"/tmp/_w1_{m is None}",
+                         mesh=m) for m in (None, mesh)]
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.distributed.destroy_process_group()
+    (a, la), (b, lb) = out
+    assert len(la) == 3 and la == lb, (la, lb)
+    for p, q in zip(a.model.parameters(), b.model.parameters()):
+        assert torch.equal(p, q)
+
+
+def test_deeplab_and_segunet_on_card_match_cpu(cuda):
+    import copy
+
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.data.segmentation import SegUNet, batched_extraction
+    from reid_tpu_torch.models.deeplab import DeepLabV3
+
+    x = torch.rand((2, 64, 48, 3), generator=torch.Generator().manual_seed(1))
+    for model, fn in ((DeepLabV3(21, 8, 32), lambda m, t: m(t)),
+                      (SegUNet(base=8), lambda m, t: batched_extraction(
+                          m, t * 255.0))):
+        model = model.init_weights(torch.Generator().manual_seed(0)).eval()
+        with torch.inference_mode():
+            want = fn(model, x)
+            with full_f32():
+                got = fn(copy.deepcopy(model).to(cuda), x.to(cuda)).cpu()
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale

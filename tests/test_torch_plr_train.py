@@ -347,7 +347,7 @@ def test_train_cnn_osnet_matches_jax_loss_trace(tmp_path, monkeypatch):
     from reid_tpu_torch.data.dataset import synthetic_dataset
     from reid_tpu_torch.train import steps
     from reid_tpu_torch.train.image_train import train_cnn
-    from test_torch_train_data import jax_augment_draws
+    from test_torch_train_data import jax_augment_draws, place_seeded_luts
     from test_torch_train_step import jax_state
     import reid_tpu.utils as jutils
 
@@ -378,6 +378,7 @@ def test_train_cnn_osnet_matches_jax_loss_trace(tmp_path, monkeypatch):
         return jax_augment_draws(k, b, hh, ww, pad)
     monkeypatch.setattr(steps, "augment_draws", jax_draws)
     monkeypatch.setattr(jutils, "save_checkpoint", lambda path, state: path)
+    place_seeded_luts(monkeypatch)
     jds = jsynthetic(n=32, num_pids=n_ids, height=h, width=w)
     tds = synthetic_dataset(n=32, num_pids=n_ids, height=h, width=w)
     js, jloss = jtrain_cnn(jc, jds, state=js, log_every=1,

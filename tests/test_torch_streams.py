@@ -129,7 +129,7 @@ def test_streams_match_jax_and_single_stream(method, assignment, budget):
 
 def test_stream_tracker_checks_its_inputs():
     cfg = tmc("strongsort", max_tracks=8, max_dets=4, crop_hw=CROP)
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(ValueError, match="mesh="):
         make_stream_tracker(cfg, torch_toy, CROP, device=["cuda:0",
                                                           "cuda:1"])
     run = make_stream_tracker(cfg, torch_toy, CROP, chunk=4, device="cpu")

@@ -42,7 +42,7 @@ from reid_tpu_torch.data.dataset import synthetic_dataset
 from reid_tpu_torch.utils.flax_bridge import (torch_state_dict,
                                               train_state_from_flax)
 from test_torch_train_data import (jax_augment_draws,  # noqa: F401
-                                   two_torch_threads)
+                                   place_seeded_luts, two_torch_threads)
 from test_torch_train_step import jax_state
 
 H, W, C, B = 32, 16, 8, 8
@@ -93,6 +93,7 @@ def test_train_cnn_matches_jax_loss_trace(variables, tmp_path, monkeypatch):
     # not read (importing orbax alone takes seconds)
     import reid_tpu.utils as jutils
     monkeypatch.setattr(jutils, "save_checkpoint", lambda path, state: path)
+    place_seeded_luts(monkeypatch)
     jds = jsynthetic(n=32, num_pids=C, height=H, width=W)
     tds = synthetic_dataset(n=32, num_pids=C, height=H, width=W)
     # the epoch-0 seeding of the DCC tables, which train_cnn repeats

@@ -34,6 +34,24 @@ def two_torch_threads():
     torch.set_num_threads(n)
 
 
+def place_seeded_luts(monkeypatch):
+    """JAX's `train_cnn` seeds the DCC tables (`seed_dcc_luts`) after it
+    has placed the state on its mesh, so its first step takes the tables
+    unplaced and its second, taking the first step's placed outputs,
+    traces and compiles the whole step again. Here the seeded tables get
+    the placement of the state's parameters: the same values, and one
+    compile of the step."""
+    import reid_tpu.train.image_train as jimage_train
+    seed = jimage_train.seed_dcc_luts
+
+    def placed(state, *a, **kw):
+        out = seed(state, *a, **kw)
+        sharding = jax.tree_util.tree_leaves(state.params)[0].sharding
+        dcc = jax.device_put(out.loss_state.dcc, sharding)
+        return out.replace(loss_state=out.loss_state._replace(dcc=dcc))
+    monkeypatch.setattr(jimage_train, "seed_dcc_luts", placed)
+
+
 def jax_augment_draws(key, b, h, w, pad):
     """The random numbers `augment_batch(key, ...)` draws, split from the
     key exactly as it splits them, in `augment_apply`'s form."""

@@ -12,10 +12,11 @@ JAX package's, one run each at the cheapest settings that reach the
     both sides; the tracker's feature width from the probe forward, 512
     + classes.
   * `inference_main --backbone agw` on test_torch_retrieval's Market-style
-    tree at 80x40 (f32, re-ranking on; D = 2048 + 6), from one random
-    train state whose non-local `w_bn` scales are made non-zero (an orbax
-    checkpoint for JAX, its `.npz` for the port): CMC identical at every
-    rank, mAP within 1e-6.
+    tree at 80x40 (f32, re-ranking on; D = 2048 + 6), from one set of
+    weights, the port's init with the non-local `w_bn` scales made
+    non-zero (the JAX run's checkpoint restore hands it them, and its
+    `init` returns them, so that XLA compiles no init; the port reads
+    them from its `.npz`): CMC identical at every rank, mAP within 1e-6.
   * The port's `train_main --backbone emares18` and `train_main --renorm`
     (SERes18 with BatchRenorm), two epochs of one step (--bs 8
     --instance 2) at 64x32 on that tree: finite losses and parameters, a
@@ -157,38 +158,33 @@ def market_tree(tmp_path_factory):
     return write_market_tree(str(tmp_path_factory.mktemp("m") / "market"))
 
 
-def test_inference_main_agw_matches_jax(market_tree, tmp_path):
-    import reid_tpu.config as jcfg
+def test_inference_main_agw_matches_jax(market_tree, tmp_path, monkeypatch):
+    import reid_tpu.utils as jutils
     from reid_tpu.cli import inference_main as jax_inference_main
-    from reid_tpu.models import build_model as jbuild
-    from reid_tpu.train.state import create_train_state
-    from reid_tpu.utils import save_checkpoint
     from reid_tpu_torch.cli import inference
-    from reid_tpu_torch.utils.flax_bridge import save_npz
+    from reid_tpu_torch.models import build_model
+    from reid_tpu_torch.utils.flax_bridge import flax_variables, save_npz
 
-    cfg = jcfg.Config()
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, num_classes=6))
-    state = create_train_state(jax.random.PRNGKey(0),
-                               jbuild("agw", num_classes=6, num_cams=6),
-                               cfg, 1, input_shape=(2, 80, 40, 3))
+    v = flax_variables(build_model("agw", num_classes=6, device="cpu"))
     rng = np.random.default_rng(0)
-    params = jax.tree_util.tree_map(np.asarray, state.params)
     for nl in ("nl2", "nl3"):
-        scale = params[nl]["w_bn"]["scale"]
-        params[nl]["w_bn"]["scale"] = rng.normal(
+        scale = v["params"][nl]["w_bn"]["scale"]
+        v["params"][nl]["w_bn"]["scale"] = rng.normal(
             0, 0.1, scale.shape).astype(np.float32)
-    state = state.replace(params=jax.tree_util.tree_map(jnp.asarray,
-                                                        params))
-    ckpt = save_checkpoint(str(tmp_path / "ckpt"), state)
+    skip_jax_init(monkeypatch, "agw", v)
+    monkeypatch.setattr(jutils, "restore_checkpoint",
+                        lambda path, state: state.replace(
+                            params=jax.tree_util.tree_map(jnp.asarray,
+                                                          v["params"]),
+                            batch_stats=jax.tree_util.tree_map(
+                                jnp.asarray, v["batch_stats"])))
     npz = str(tmp_path / "agw.npz")
-    save_npz(npz, {"params": params, "batch_stats": jax.tree_util.tree_map(
-        np.asarray, state.batch_stats)})
+    save_npz(npz, v)
     flags = ["--root", market_tree, "--height", "80", "--width", "40",
-             "--bs", "8", "--backbone", "agw"]
+             "--bs", "8", "--backbone", "agw", "--ckpt"]
     keep = {}
-    cmc_j, map_j = jax_inference_main(flags + ["--ckpt", ckpt])
-    cmc_t, map_t = inference(flags + ["--ckpt", npz], device="cpu",
-                             keep=keep)
+    cmc_j, map_j = jax_inference_main(flags + ["unused"])
+    cmc_t, map_t = inference(flags + [npz], device="cpu", keep=keep)
     assert keep["qf"].shape[1] == 2048 + 6
     np.testing.assert_array_equal(cmc_t, np.asarray(cmc_j))
     assert abs(map_t - map_j) <= 1e-6, (map_t, map_j)
