@@ -2,7 +2,7 @@
 """Smoke run of `reid_tpu_torch` on one NVIDIA card: the quickest proof that
 the port builds its kernels and runs its main path there.
 
-    python3 chip_smoke.py             # on one card, about 13-14 min of command
+    python3 chip_smoke.py             # on one card, about 14 min of command
     python3 chip_smoke.py --profile   # the same, tracing the track runs,
                                       # a chunk of each stream operating
                                       # point and the retrieval run
@@ -97,7 +97,7 @@ Phases, one JSON line each:
               `nms_fixed` alone. CenterNetLite (f32, no kernel of ours)
               over 8 frames: fps and detections a frame;
   4c. gauntlet `reid_tpu_torch.gauntlet`: its 300-frame distractor scene
-              rendered into a temporary directory, the five methods
+              (rendered while the kernels build), the five methods
               through `track_main --gt` (--chunk 16, --conf_thres 0.3,
               --max_dets 64): MOTA, IDF1 and HOTA of each against its
               CHECK_BANDS, which it must not leave;
@@ -201,7 +201,7 @@ Phases, one JSON line each:
               (16,522 images of 702 ids at 256x128, on disk) with the
               dense search plan, so K6 ranks and K7 sums (the "auto" plan
               takes the top-S min-sum above 15,000 rows), then
-              `train_continual` for one epoch over every twelfth record
+              `train_continual` for one epoch over every 24th record
               of the merged split (CONTINUAL_EVERY, a cut for the
               clock): the
               clusters, the Jaccard's seconds, peak memory, and the K6/K7
@@ -225,7 +225,8 @@ The torchvision-style ResNets, in the same run:
               against CPU on 8 crops; the `--int8` embed of each of the
               three against its f32 embed on the card, with baseline's K1
               launches in one embed call;
- 19. retrieval `--backbone agw --int8` on phase 6's split (D = 2,799):
+ 19. retrieval `--backbone agw --int8` on half of phase 6's split
+              (ZOO_SPLIT_PART, N = 11,550; D = 2,799):
               seconds, CMC/mAP, peak memory, launches; K6 and K7 held
               against their plain versions on that run's operands and timed
               (phase 9 without its full N x N call);
@@ -263,7 +264,7 @@ OSNet and PLR-OSNet, in the same run:
               a row; PLR-OSNet embeds its 2,560-wide feature alone), and
               each `--int8` embed against its f32 embed on the card
               (cosine >= 0.99, no K1 or K2 launch);
- 27. retrieval `--backbone plr_osnet` in f32 on phase 6's split (D =
+ 27. retrieval `--backbone plr_osnet` in f32 on phase 19's split (D =
               2,560): seconds, CMC/mAP, peak memory, launches; K6 (D =
               2,560) and K7 held against their plain versions on that
               run's operands and timed, as phase 19;
@@ -288,8 +289,8 @@ ViT-t with SIE and Swin-T v1 / v2 at 448x224, in the same run:
               crops of 448x224 (cosine >= 0.999 a row), and each `--int8`
               embed against its f32 embed on the card (cosine >= 0.99, no
               K1 or K2 launch), as phase 26;
- 31. retrieval `--backbone vit` in f32 on a split of phase 6's sizes, ids
-              and cameras at 448x224 (`market_splits`; D = 1,135):
+ 31. retrieval `--backbone vit` in f32 on a split of phase 19's sizes,
+              ids and cameras at 448x224 (`market_splits`; D = 1,135):
               seconds, CMC/mAP, peak memory, launches;
               K6 at D = 1,135 and K7 held against their plain versions on
               that run's operands and timed, as phase 19;
@@ -357,7 +358,8 @@ kernel of K1-K7 lies on these paths (their launches counted, 0):
               `train_cnn(mesh=)` on it against `train_cnn` without one over
               the training tree's first 32 ids, cuDNN deterministic:
               losses and weights bit for bit, the collectives called;
-              then `image_reid_train` under `torch.distributed.run
+              later, beside phase 28's and 32's card-vs-CPU steps,
+              `image_reid_train` under `torch.distributed.run
               --standalone --nproc_per_node=1` on a tree of that size;
               (b) after phase 7, the row-sharded Jaccard at world 1 on the
               retrieval run's features (N = 23,100) against the dense
@@ -370,7 +372,30 @@ kernel of K1-K7 lies on these paths (their launches counted, 0):
               at torchvision's widths on 64 crops of 256x128 (f32 and
               bf16 forward, card against CPU on 2 crops), SegUNet's
               `batched_extraction` and two epochs of `train_segmenter`.
-Then the `kernels` line, the nvidia-smi line and, last, the result line.
+ 41. artifact the tracking chunk exported with torch.export
+              (`pipeline.chunk_serving_fn`: the 13 state tensors and the
+              chunk's inputs in, the new state and the outputs out; the
+              assignment loops, the ORU replay and the frame loop as
+              `while_loop` nodes), right after phase 4 on its scene:
+              `--int8`, strongsort, greedy_rounds, ARTIFACT_CHUNK frames a
+              chunk (K1 and K2 at B = 2,048 inside the graph), exported
+              on the card from the first chunk, loaded in a fresh process
+              (`artifact_worker`: only `load_serving_fn` imports the
+              kernels' ops; started after phase 39, it loads beside
+              the GAN card-vs-CPU checks and then runs the chunks alone
+              on the card) and run
+              over 2 chunks from one state against
+              the eager chunk: ids and valid equal, tlwh within 1e-4, K1
+              and K2 launched 2 and 4 times a chunk (counted; the K1 / K2
+              track rows' `launches_artifact_run`); export seconds, bytes,
+              `while_loop` nodes, ms a frame of the artifact and of the
+              eager chunk. After phase 5, on its panned scene: botsort in
+              bf16 with device GMC (the FFT in the graph), 2 chunks of
+              ARTIFACT_GMC_CHUNK, loaded in process, held the same way.
+The training trees of phases 10 and 11 and the gauntlet's scene are
+written by a process of their own while the kernels build
+(`write_data`). Then the `kernels`
+line, the nvidia-smi line and, last, the result line.
 Everything is also written to chiprun_out/chip_smoke.json.
 """
 
@@ -452,6 +477,10 @@ K7_REPLACES = "reid_tpu/ops/distance.py:149"
 DIST_SOURCE = "reid_tpu_torch/csrc/distance.cu"
 # the retrieval operating point: Market-1501's test split
 N_QUERY, N_GALLERY, N_IDS, N_CAMS, N_CLASSES = 3368, 19732, 750, 6, 751
+# the other backbones' retrievals (agw --int8, plr_osnet, vit) run on
+# 1 / ZOO_SPLIT_PART of it (1,684 + 9,866 images, N = 11,550), each with
+# K6 at its width and K7 held on its own operands: the smoke's clock
+ZOO_SPLIT_PART = 2
 # the multi-stream operating points (bench.py:315-386, :390, :908-911):
 # S streams, `n_real` boxes a frame in `max_dets` slots; each stream's crop
 # budget is chunk x n_real, so a chunk embeds S x chunk x n_real crops;
@@ -464,6 +493,12 @@ STREAM_POINTS = {
     "mot16_load_multistream8": dict(streams=8, chunk=8, hw=(1080, 1920),
                                     n_real=50, max_dets=64,
                                     max_tracks=128, n_chunks=2)}
+
+# phase 41: the tracking chunk as a torch.export artifact, at phase 4's
+# load (--int8, chunk 32: K1 and K2 at B = 2,048 inside the graph) and
+# botsort in bf16 with device GMC on phase 5's panned scene, two chunks
+# of each
+ARTIFACT_CHUNK, ARTIFACT_GMC_CHUNK = 32, 8
 
 RESULTS = {}
 # the script's start, for each line's seconds since it (`t_s`)
@@ -1114,6 +1149,294 @@ def phase_gmc(tmp, n_frames, chunk, step_frames):
     return res
 
 
+def scene_argv(tmp, *extra):
+    """`cli.track`'s flags for the MOT16-load scene that `write_scene`
+    wrote under `tmp`."""
+    return ["--detections", os.path.join(tmp, "det.txt"), "--frames_dir",
+            os.path.join(tmp, "frames"), "--max_dets", "64", "--num_classes",
+            "751", "--crop_hw", "256", "128", *extra]
+
+
+def chunk_run_inputs(argv, n_frames, dev):
+    """What `cli.track argv` tracks, built as `cli._track` builds it: the
+    tracker configuration, the embed (its `--int8` calibration on the
+    source's frames) and its width, and the first `n_frames` frames and
+    MOT detections as (T, ...) tensors on `dev`."""
+    import torch
+    from reid_tpu_torch import cli
+    from reid_tpu_torch.tracking.mot import load_mot_detections
+    from reid_tpu_torch.tracking.sources import iter_frames
+
+    args = cli._parser().parse_args(argv)
+    cfg = cli.track_config(args)
+    embed_fn, _ = cli.build_embed(args.backbone, args.num_classes,
+                                  cfg.crop_hw, dev, int8=args.int8,
+                                  source=args.frames_dir)
+    with torch.inference_mode():
+        feat_dim = int(embed_fn(torch.zeros((1, *cfg.crop_hw, 3),
+                                            device=dev)).shape[-1])
+    dets = load_mot_detections(args.detections, cfg.max_dets,
+                               min_conf=args.conf_thres)
+    items = list(iter_frames(args.frames_dir, n_frames))
+    empty = (np.zeros((cfg.max_dets, 4), np.float32),
+             np.zeros(cfg.max_dets, np.float32),
+             np.zeros(cfg.max_dets, bool))
+    tlwh, conf, valid = (np.stack(x) for x in zip(
+        *[dets.get(i, empty) for i, _ in items]))
+    data = [torch.from_numpy(np.stack([f for _, f in items])),
+            torch.from_numpy(tlwh).float(), torch.from_numpy(conf).float(),
+            torch.from_numpy(valid)]
+    return cfg, embed_fn, feat_dim, [x.to(dev) for x in data]
+
+
+def run_chunks(fn, state, chunks, gmc):
+    """The flat chunk function `fn` (`pipeline.chunk_serving_fn` or its
+    loaded artifact) over `chunks` of (frames, tlwh, conf, valid) from the
+    flat `state`, each chunk's GMC anchored on the frame before it (its
+    own first frame for the first): (each chunk's outputs (tlwh, ids,
+    valid), the last state)."""
+    from reid_tpu_torch.tracking.tracker import TrackerState
+    n = len(TrackerState._fields)
+    outs, prev = [], None
+    for frames, tlwh, conf, valid in chunks:
+        anchor = (frames[0] if prev is None else prev,) if gmc else ()
+        res = fn(*state, frames, tlwh, conf, valid, *anchor)
+        state, prev = res[:n], frames[-1]
+        outs.append(res[n:])
+    return outs, state
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def start_process(fn, *args, **popen):
+    """`chip_smoke.<fn>(*args)` (strings) in a new Python process, started
+    from the repo's root without waiting for it."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         f"chip_smoke.{fn}(*sys.argv[1:])", *args], cwd=ROOT, **popen)
+
+
+def stop(procs):
+    """Ends each process of `procs` that still runs."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def artifact_runs(fn, state, chunks, gmc, dev):
+    """The chunks through the loaded chunk artifact `fn` from `state`, its
+    kernels' launches counted, then once more timed: the outputs, the
+    last state, the launches and the seconds of both passes."""
+    import torch
+    from reid_tpu_torch.ops import _lib
+    with torch.inference_mode():
+        sync(dev)
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, last = run_chunks(fn, state, chunks, gmc)
+        sync(dev)
+        first_s = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        sites = {f"{n} {list(s)}": c
+                 for (n, s), c in _lib.site_launch_counts().items()}
+        t0 = time.perf_counter()
+        run_chunks(fn, state, chunks, gmc)
+        sync(dev)
+        timed_s = time.perf_counter() - t0
+    return {"outs": outs, "state": last, "launches": counts,
+            "site_launches": sites, "first_s": first_s, "timed_s": timed_s}
+
+
+def artifact_worker(path, inputs_path, out_path, device="cuda", go=None):
+    """Phase 41's fresh process: load the chunk artifact at `path` (only
+    `load_serving_fn` imports the port's kernels and registers their
+    ops) and the chunks saved at `inputs_path`; then, once the file `go`
+    exists (at once without one), run the chunks through the artifact
+    (`artifact_runs`) and save what it gives at `out_path`. It gives up
+    when the process that started it is gone."""
+    import torch
+    parent = os.getppid()
+    ops_before = "reid_tpu_torch.ops" in sys.modules
+    from reid_tpu_torch.utils.export import load_serving_fn
+    t0 = time.perf_counter()
+    fn = load_serving_fn(path)
+    load_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    saved = torch.load(inputs_path)
+    state = [t.to(dev) for t in saved["state"]]
+    chunks = [[t.to(dev) for t in c] for c in saved["chunks"]]
+    t0 = time.perf_counter()
+    while go and not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit("artifact_worker: its parent is gone")
+        time.sleep(0.05)
+    wait_s = time.perf_counter() - t0
+    # the track path's settings (`cli.full_f32`)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = artifact_runs(fn, state, chunks, saved["gmc"], dev)
+    got.update(outs=[[t.cpu() for t in o] for o in got["outs"]],
+               state=[t.cpu() for t in got["state"]], load_s=load_s,
+               wait_s=wait_s, ops_imported_before_load=ops_before)
+    torch.save(got, out_path)
+
+
+def export_chunk_artifact(tmp, argv, chunk, n_chunks, dev="cuda"):
+    """Phase 41's export: the tracking chunk of `cli.track argv` as a
+    `torch.export` artifact (`pipeline.chunk_serving_fn`, flat tensors in
+    and out, static shapes), exported on the card from its first chunk
+    into `tmp`, after `n_chunks` chunks through the eager chunk from a
+    fresh state, twice (the second pass timed). Returns the job that
+    `hold_chunk_artifact` holds: the artifact's path, the inputs, the
+    eager outputs and what was measured (export seconds, bytes, the
+    graph's `while_loop` nodes and host reads)."""
+    import torch
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.tracking.pipeline import (chunk_serving_fn,
+                                                  make_chunked_tracker)
+    from reid_tpu_torch.tracking.tracker import Tracker
+    from reid_tpu_torch.utils.export import export_serving_fn
+
+    dev = torch.device(dev)
+    t_frames = chunk * n_chunks
+    cfg, embed_fn, feat_dim, data = chunk_run_inputs(argv, t_frames, dev)
+    chunks = [[x[i:i + chunk] for x in data]
+              for i in range(0, t_frames, chunk)]
+    chunked = make_chunked_tracker(cfg, embed_fn, cfg.crop_hw, chunk)
+    serving = chunk_serving_fn(chunked)
+    gmc = chunked.use_gmc
+    state = tuple(Tracker(cfg, feat_dim, dev).init_state())
+    res = dict(chunk=chunk, chunks=n_chunks, method=cfg.method)
+    with full_f32():
+        with torch.inference_mode():
+            want, want_state = run_chunks(serving, state, chunks, gmc)
+            sync(dev)
+            t0 = time.perf_counter()
+            run_chunks(serving, state, chunks, gmc)
+            sync(dev)
+            res["eager_ms_per_frame"] = 1e3 * (time.perf_counter()
+                                               - t0) / t_frames
+        path = os.path.join(tmp, f"chunk_{cfg.method}.pt2")
+        anchor = (chunks[0][0][0],) if gmc else ()
+        sync(dev)
+        t0 = time.perf_counter()
+        ep = export_serving_fn(serving, state + tuple(chunks[0]) + anchor,
+                               path, dynamic_batch=False)
+        res["export_s"] = time.perf_counter() - t0
+    res["bytes"] = os.path.getsize(path)
+    targets = [str(n.target) for _, m in ep.graph_module.named_modules()
+               for n in m.graph.nodes if n.op == "call_function"]
+    res["while_loop_nodes"] = sum("while_loop" in t for t in targets)
+    res["host_reads_in_graph"] = sum("_local_scalar_dense" in t
+                                     for t in targets)
+    res["graph_nodes"] = len(targets)
+    return dict(res=res, path=path, dev=dev, state=state, chunks=chunks,
+                gmc=gmc, want=want, want_state=want_state)
+
+
+class ArtifactWorker:
+    """Phase 41's fresh process (`artifact_worker`) for an exported job:
+    started at once, so that it imports, loads the artifact and its
+    inputs while the smoke runs a phase it does not time; `result()` lets
+    it run the chunks, alone on the card, and returns what it gave;
+    `stop()` ends it."""
+
+    def __init__(self, job, tmp):
+        import torch
+        self.inputs = os.path.join(tmp, "chunk_worker_in.pt")
+        self.out = os.path.join(tmp, "chunk_worker_out.pt")
+        self.go = os.path.join(tmp, "chunk_worker.go")
+        torch.save({"state": [t.cpu() for t in job["state"]],
+                    "chunks": [[t.cpu() for t in c] for c in job["chunks"]],
+                    "gmc": job["gmc"]}, self.inputs)
+        self.t0 = time.perf_counter()
+        self.proc = start_process("artifact_worker", job["path"],
+                                  self.inputs, self.out, job["dev"].type,
+                                  self.go)
+
+    def result(self):
+        import torch
+        with open(self.go, "w"):
+            pass
+        rc = self.proc.wait(timeout=600)
+        assert rc == 0, f"artifact_worker exited {rc}"
+        got = torch.load(self.out)
+        got["process_s"] = time.perf_counter() - self.t0
+        os.remove(self.inputs)
+        return got
+
+    def stop(self):
+        stop([self.proc])
+
+
+def run_chunk_artifact(job):
+    """The in-process form of phase 41's run: the exported job's artifact
+    loaded here and its chunks run through it (`artifact_runs`)."""
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.utils.export import load_serving_fn
+    t0 = time.perf_counter()
+    fn = load_serving_fn(job["path"])
+    load_s = time.perf_counter() - t0
+    with full_f32():
+        got = artifact_runs(fn, job["state"], job["chunks"], job["gmc"],
+                            job["dev"])
+    got["load_s"] = load_s
+    return got
+
+
+def hold_chunk_artifact(name, job, got, per_chunk):
+    """Phase 41's check of an exported job against what its loaded
+    artifact gave (`got`, from `ArtifactWorker` or `run_chunk_artifact`):
+    ids and valid equal to the eager chunk's, tlwh within 1e-4, no host
+    read and at least two `while_loop` nodes in the graph, the kernels'
+    ops not imported before the load in a fresh process, and `per_chunk`
+    (K1, K2) launches a chunk; ms a frame of the artifact (a second,
+    timed pass) beside the eager chunk's. Emits and returns the result."""
+    import torch
+    from reid_tpu_torch.tracking.tracker import TrackerState
+    res, want = job["res"], job["want"]
+    t_frames = res["chunk"] * res["chunks"]
+    res.update(fresh_process="process_s" in got, load_s=got["load_s"],
+               first_pass_ms_per_frame=1e3 * got["first_s"] / t_frames,
+               ms_per_frame=1e3 * got["timed_s"] / t_frames,
+               launches=got["launches"], site_launches=got["site_launches"],
+               ops_imported_before_load=got.get("ops_imported_before_load"))
+    for key in ("process_s", "wait_s"):
+        if key in got:
+            res[key] = got[key]
+    equal, tlwh_err, rows = True, 0.0, 0
+    for (tl, ids, vd), (wtl, wids, wvd) in zip(got["outs"], want):
+        wvd = wvd.cpu()
+        equal &= torch.equal(ids.cpu(), wids.cpu()) and \
+            torch.equal(vd.cpu(), wvd)
+        if wvd.any():
+            tlwh_err = max(tlwh_err, float((tl.cpu()[wvd]
+                                            - wtl.cpu()[wvd]).abs().max()))
+        rows += int(wvd.sum())
+    res.update(ids_valid_equal=bool(equal), tlwh_max_err=tlwh_err,
+               rows=rows, outputs_bit_equal=all(
+                   torch.equal(a.cpu(), b.cpu())
+                   for o, w in zip(got["outs"], want) for a, b in zip(o, w)),
+               state_leaves_not_bit_equal=[
+                   f for f, a, b in zip(TrackerState._fields, got["state"],
+                                        job["want_state"])
+                   if not torch.equal(a.cpu(), b.cpu())])
+    emit(f"chunk artifact {name}", **res)
+    assert res["ids_valid_equal"] and res["tlwh_max_err"] <= 1e-4, res
+    assert res["rows"] > 0 and res["host_reads_in_graph"] == 0, res
+    assert res["while_loop_nodes"] >= 2, res
+    assert not res["ops_imported_before_load"], res
+    got = (res["launches"].get("conv3x3_s8", 0),
+           res["launches"].get("se_basic_block_s8", 0))
+    assert got == tuple(n * res["chunks"] for n in per_chunk), (got, res)
+    return res
+
+
 def phase_probe(kind):
     """The qconv probe (`reid_tpu_torch.qconv_probe.run`) at its four
     configurations, the path of K3-K5: launch counts zeroed just before
@@ -1227,11 +1550,11 @@ def phase_retrieval(query, gallery, make_s, profile_to=None, int8=False,
              for (n, s), c in _lib.site_launch_counts().items()}
     peak = torch.cuda.max_memory_allocated()
     dists = keep.pop("dists")
-    n = N_QUERY + N_GALLERY
+    n = len(query) + len(gallery)
     dim = keep["qf"].shape[1]
     name = "retrieval" + ("" if backbone == "seres18" else f" {backbone}")
-    emit(name + (" --int8" if int8 else ""), n_query=N_QUERY,
-         n_gallery=N_GALLERY, dim=dim, cmc1=float(cmc[0]),
+    emit(name + (" --int8" if int8 else ""), n_query=len(query),
+         n_gallery=len(gallery), dim=dim, cmc1=float(cmc[0]),
          cmc5=float(cmc[4]), cmc10=float(cmc[9]), mAP=mean_ap,
          stage_s=timing, wall_s=wall, data_s=make_s, peak_mem_gb=peak / 1e9,
          device_kernel_ms=busy_ms, launches=counts, site_launches=sites)
@@ -1699,14 +2022,15 @@ def phase_track_centernet(tmp, n_frames=8):
     assert not run["launches"], run["launches"]
 
 
-def phase_gauntlet():
-    """`reid_tpu_torch.gauntlet`: its 300-frame scene rendered into a
-    temporary directory, the five methods through `track_main --gt` on the
-    card; each method's MOTA, IDF1 and HOTA inside its CHECK_BANDS."""
+def phase_gauntlet(scene_dir):
+    """`reid_tpu_torch.gauntlet`: its 300-frame scene, rendered into
+    `scene_dir` by `write_data`, the five methods through `track_main
+    --gt` on the card; each method's MOTA, IDF1 and HOTA inside its
+    CHECK_BANDS."""
     from reid_tpu_torch import gauntlet
 
     t0 = time.perf_counter()
-    results = gauntlet.run(device="cuda")
+    results = gauntlet.run(scene_dir=scene_dir, device="cuda")
     for method, m in results.items():
         emit(f"gauntlet {method}", MOTA=m["MOTA"], IDF1=m["IDF1"],
              HOTA=m["HOTA"], IDSW=m["IDSW"], band=gauntlet.CHECK_BANDS[method],
@@ -2169,6 +2493,24 @@ TRAIN_IDS, TRAIN_PER_ID, TRAIN_EPOCHS = 751, 8, 1
 # the continual phase's target: DukeMTMC-reID's train split, 16,522 images
 # of 702 ids (376 ids of 24 images and 326 of 23)
 DUKE_IDS, DUKE_COUNTS = 702, [24] * 376 + [23] * 326
+
+
+def write_data(root):
+    """The data the smoke reads from disk, under `root`: the synthetic
+    trees of phases 10 and 11, the training tree (`TRAIN_*`) as `market`
+    and the continual target (`DUKE_*`) as `duke`, and the gauntlet's
+    scene as `gauntlet`. Run by a process of its own (`start_process`)
+    while the kernels build: the smoke's clock."""
+    from reid_tpu_torch import gauntlet
+    from reid_tpu_torch.data.datasets import write_synthetic_tree
+    write_synthetic_tree(os.path.join(root, "market"), "market1501",
+                         TRAIN_IDS, TRAIN_PER_ID, query_per_id=1,
+                         gallery_per_id=2)
+    write_synthetic_tree(os.path.join(root, "duke"), "dukemtmc", DUKE_IDS,
+                         DUKE_COUNTS, num_cams=8, seed=1)
+    gauntlet.write_gauntlet(os.path.join(root, "gauntlet"))
+
+
 # the card-vs-CPU step: SERes18 at 256x128 with 751 classes, a batch of 16
 # (4 ids x 4); OSNet's and PLR-OSNet's of 8 (2 x 4): the CPU's second
 # step, with ATen's own convolution for the spread, takes ~55 s at 16 (its
@@ -2318,29 +2660,28 @@ def step_profile(state, cfg, batches, reps=5, step=None,
                 traced_wall_ms_per_step=wall)
 
 
-def phase_train(tmp):
+def phase_train(tmp, trees):
     """`cli.train_main` on a synthetic Market-shaped tree on the card: two
     epochs of SERes18-IBN bf16 at 256x128, 751 classes, --bs 64
     --instance 4, then --export; the step period on the device's clock,
     images/s, the host's wait on the loader, peak memory and the logged
     losses (which must fall); the `.npz` checkpoint read back by
     `inference_main --ckpt`, the artifact against serving in process.
-    Returns what the continual phase starts from: (state, cfg, source
-    dataset, kept batches)."""
+    The tree is `write_data`'s under `tmp`, from the process `trees`
+    (data_s: the wait for it). Returns what the continual phase starts
+    from: (state, cfg, source dataset, kept batches)."""
     import copy
     import statistics
 
     import torch
     from reid_tpu_torch import cli
-    from reid_tpu_torch.data.datasets import write_synthetic_tree
     from reid_tpu_torch.eval.serving import load_serving_fn, make_embed_fn
     from reid_tpu_torch.train import image_train
     from reid_tpu_torch.utils.flax_bridge import load_npz
 
     market = os.path.join(tmp, "market")
     t0 = time.perf_counter()
-    write_synthetic_tree(market, "market1501", TRAIN_IDS, TRAIN_PER_ID,
-                         query_per_id=1, gallery_per_id=2)
+    assert trees.wait(timeout=600) == 0, "write_data failed"
     data_s = time.perf_counter() - t0
     pt2, ckpt_dir = os.path.join(tmp, "reid.pt2"), os.path.join(tmp, "ckpt")
     clock = TrainClock()
@@ -2599,8 +2940,8 @@ def phase_train_card_vs_cpu(backbone="seres18", spread=False,
 
 
 # the continual epoch's depth cut for the smoke's time limit: every
-# CONTINUAL_EVERY-th record of the merged split (4 before)
-CONTINUAL_EVERY = 12
+# CONTINUAL_EVERY-th record of the merged split (4, then 12 before)
+CONTINUAL_EVERY = 24
 
 
 def phase_continual(state, cfg, source, tmp):
@@ -2618,16 +2959,14 @@ def phase_continual(state, cfg, source, tmp):
     from reid_tpu_torch.cli import full_f32
     from reid_tpu_torch.config import RetrievalConfig
     from reid_tpu_torch.data.dataset import ReIDDataset
-    from reid_tpu_torch.data.datasets import (build_dataset,
-                                              write_synthetic_tree)
+    from reid_tpu_torch.data.datasets import build_dataset
     from reid_tpu_torch.ops import _lib, rerank
     from reid_tpu_torch.ops import distance as dist
     from reid_tpu_torch.train import image_train
 
+    # written with the training tree (`write_data`); data_s reads it
     duke = os.path.join(tmp, "duke")
     t0 = time.perf_counter()
-    write_synthetic_tree(duke, "dukemtmc", DUKE_IDS, DUKE_COUNTS,
-                         num_cams=8, seed=1)
     raw = build_dataset("dukemtmc", duke, verbose=False)
     target = ReIDDataset(raw.train, raw.num_train_pids, 256, 128)
     data_s = time.perf_counter() - t0
@@ -3081,11 +3420,11 @@ def phase_train_plr(instances):
     return res
 
 
-def market_splits(hw=(256, 128)):
+def market_splits(hw=(256, 128), part=1):
     """Query and gallery of Market-1501's size at `hw` (448x224 for the
-    transformers): 3,368 and 19,732 images of 750 ids, each identity's
-    copies cycling over the 6 cameras, the queries' 3 cameras after the
-    gallery's. The pixels are drawn on the card: each identity's colour
+    transformers): 3,368 and 19,732 images of 750 ids (with `part`,
+    1 / part of each), each identity's copies cycling over the 6
+    cameras, the queries' 3 cameras after the gallery's. The pixels are drawn on the card: each identity's colour
     from one palette plus uniform noise in [-25, 25), as
     `synthetic_dataset` makes them (its host generator takes 24 s at
     256x128). Returns (query, gallery, seconds)."""
@@ -3111,7 +3450,7 @@ def market_splits(hw=(256, 128)):
         return ReIDDataset(records, N_IDS, *hw).preload(images)
 
     t0 = time.perf_counter()
-    query, gallery = make(N_QUERY, 3), make(N_GALLERY, 0)
+    query, gallery = make(N_QUERY // part, 3), make(N_GALLERY // part, 0)
     return query, gallery, time.perf_counter() - t0
 
 
@@ -4020,17 +4359,14 @@ def phase_train_mesh(tmp, mesh):
     `train_cnn` without a mesh, from one state over the training tree's
     first `MESH_TRAIN_IDS` ids (the CLI's bf16 configuration, --bs 64
     --instance 4, one epoch), cuDNN deterministic: losses and weights bit
-    for bit, the collectives called (identities on one rank); then
-    `image_reid_train` under `torch.distributed.run --standalone
-    --nproc_per_node=1` on a tree of that size, which must join the
-    group, train and write its checkpoint."""
+    for bit, the collectives called (identities on one rank). Its CLI
+    run is `start_torchrun_cli`'s."""
     import copy
 
     import torch
     from reid_tpu_torch import cli
     from reid_tpu_torch.data.dataset import ReIDDataset
-    from reid_tpu_torch.data.datasets import (build_dataset,
-                                              write_synthetic_tree)
+    from reid_tpu_torch.data.datasets import build_dataset
     from reid_tpu_torch.models import build_model
     from reid_tpu_torch.train.image_train import train_cnn
     from reid_tpu_torch.train.state import create_train_state
@@ -4077,8 +4413,23 @@ def phase_train_mesh(tmp, mesh):
     assert len(la) >= 3 and all(np.isfinite(la)), la
     assert sum(ca.values()) == 0 and cb["all_gather"] > 0 and \
         cb["all_reduce"] > 0, (ca, cb)
+    emit("train_cnn mesh world 1", ids=MESH_TRAIN_IDS, images=len(ds),
+         steps=len(lb), losses_one_device=la, losses_mesh=lb,
+         losses_bit_equal=la == lb, weights_bit_equal=same_w,
+         buffers_bit_equal=same_b, one_device_s=sa, mesh_s=sb,
+         collectives_mesh=cb)
+    assert la == lb and same_w and same_b, (la, lb, same_w, same_b)
 
-    # the CLI under torchrun, one rank
+
+def start_torchrun_cli(tmp):
+    """Phase 40 (a)'s CLI run: `image_reid_train` under
+    `torch.distributed.run --standalone --nproc_per_node=1` on a tree of
+    `MESH_TRAIN_IDS` ids, started in a POSIX process group of its own (so
+    that a timeout ends torchrun and its worker) and not waited for: it
+    runs beside card-vs-CPU checks, which it does not time.
+    `finish_torchrun_cli` holds it."""
+    from reid_tpu_torch.data.datasets import write_synthetic_tree
+
     small = os.path.join(tmp, "market_small")
     write_synthetic_tree(small, "market1501", MESH_TRAIN_IDS, TRAIN_PER_ID,
                          query_per_id=1, gallery_per_id=2)
@@ -4087,32 +4438,37 @@ def phase_train_mesh(tmp, mesh):
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep +
                os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
-    # a POSIX process group of its own, so that a timeout ends torchrun
-    # and its worker
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node=1", "-m", "reid_tpu_torch.image_reid_train",
          "--root", small, "--epochs", "1", "--bs", "64", "--instance", "4"],
         cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
+    return dict(proc=proc, work=work, t0=t0)
+
+
+def stop_group(proc):
+    """Ends `proc`'s process group if `proc` still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+
+
+def finish_torchrun_cli(job):
+    """Waits for `start_torchrun_cli`'s run, which must join the group,
+    train and write its checkpoint; ends it if it is still running."""
+    proc = job["proc"]
     try:
         out, err = proc.communicate(timeout=300)
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
+        stop_group(proc)
         out, err = proc.communicate()
-    cli_s = time.perf_counter() - t0
-    ckpt = os.path.join(work, "checkpoint",
+    cli_s = time.perf_counter() - job["t0"]
+    ckpt = os.path.join(job["work"], "checkpoint",
                         "cnn_net_checkpoint_market1501.npz")
     ok = (proc.returncode == 0 and "data parallel over 1 rank" in out
           and "training complete" in out and os.path.exists(ckpt))
-    emit("train_cnn mesh world 1", ids=MESH_TRAIN_IDS, images=len(ds),
-         steps=len(lb), losses_one_device=la, losses_mesh=lb,
-         losses_bit_equal=la == lb, weights_bit_equal=same_w,
-         buffers_bit_equal=same_b, one_device_s=sa, mesh_s=sb,
-         collectives_mesh=cb, torchrun_cli_rc=proc.returncode,
-         torchrun_cli_s=cli_s, torchrun_cli_ok=ok,
-         torchrun_tail=out[-600:] + err[-600:])
-    assert la == lb and same_w and same_b, (la, lb, same_w, same_b)
+    emit("train_cnn torchrun cli", rc=proc.returncode, seconds=cli_s,
+         ok=ok, tail=out[-600:] + err[-600:])
     assert ok, (proc.returncode, out[-2000:], err[-2000:])
 
 
@@ -4391,9 +4747,24 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    smi, kind = phase_device()
+    # the training trees and the gauntlet's scene, written while the
+    # kernels build
+    train_dir = tempfile.TemporaryDirectory()
+    trees = start_process("write_data", train_dir.name)
+    try:
+        run_phases(args, smi, kind, trees, train_dir.name)
+    finally:
+        stop([trees])
+        train_dir.cleanup()
+
+
+def run_phases(args, smi, kind, trees, train_dir):
+    """The phases after the first, in order; `trees` is the process that
+    writes the data on disk into `train_dir` (`write_data`)."""
+    import torch
     from reid_tpu_torch.cli import full_f32
 
-    smi, kind = phase_device()
     phase_build()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4405,15 +4776,28 @@ def main():
     del crops
     torch.cuda.empty_cache()
     probe_rows, probe_counts = phase_probe(kind)
+    artifact_dir = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as tmp:
         chunked, _ = phase_track(tmp, 64, 32, 8, args.profile)
+        # phase 41 on phase 4's scene: K1 and K2 inside the artifact, run
+        # at the end in a fresh process (`ArtifactWorker`)
+        int8_job = export_chunk_artifact(
+            artifact_dir.name, scene_argv(tmp, "--int8"), ARTIFACT_CHUNK, 2)
     with tempfile.TemporaryDirectory() as tmp:
         phase_gmc(tmp, 64, 32, 8)
+        # and on phase 5's panned scene: the FFT and the fused cost
+        job = export_chunk_artifact(
+            tmp, scene_argv(tmp, "--tracking_method", "botsort"),
+            ARTIFACT_GMC_CHUNK, 2)
+        hold_chunk_artifact("botsort gmc bf16", job,
+                            run_chunk_artifact(job), per_chunk=(0, 0))
+        del job
     with tempfile.TemporaryDirectory() as tmp:
         det_rows = phase_track_yolo(tmp, kind)
     with tempfile.TemporaryDirectory() as tmp:
         phase_track_centernet(tmp)
-    phase_gauntlet()
+    assert trees.wait(timeout=600) == 0, "write_data failed"
+    phase_gauntlet(os.path.join(train_dir, "gauntlet"))
     _, stream_rows = phase_streams(kind, dev, args.profile)
     phase_embed()
     # one scene for the track runs of phases 17-29
@@ -4490,7 +4874,10 @@ def main():
     phase_embed_retrieval(query)
     with tempfile.TemporaryDirectory() as tmp:
         phase_artifact(gallery, tmp, dev)
-    # agw --int8 on the same split, K6/K7 held on its own operands
+    del query, gallery
+    # the zoo's retrievals on ZOO_SPLIT_PART of the split: agw --int8,
+    # K6/K7 held on its own operands
+    query, gallery, make_s = market_splits(part=ZOO_SPLIT_PART)
     keep_a, counts_a, _ = phase_retrieval(query, gallery, make_s, int8=True,
                                           backbone="agw")
     keep_a.update(query_cams=query.cams, gallery_cams=gallery.cams)
@@ -4502,7 +4889,7 @@ def main():
         assert row["launches"] > 0, row
     rows += agw_rows
     del keep_a
-    # phase 27: plr_osnet f32 on the same split (D = 2,560)
+    # phase 27: plr_osnet f32 on the zoo's split (D = 2,560)
     keep_p, counts_p, _ = phase_retrieval(query, gallery, make_s,
                                           backbone="plr_osnet")
     keep_p.update(query_cams=query.cams, gallery_cams=gallery.cams)
@@ -4516,8 +4903,8 @@ def main():
     rows += plr_rows
     del keep_p, query, gallery
     torch.cuda.empty_cache()
-    # phase 31: vit f32 on phase 6's split at 448x224 (D = 1,135)
-    query, gallery, make_v = market_splits(TRANSFORMER_HW)
+    # phase 31: vit f32 on the zoo's split at 448x224 (D = 1,135)
+    query, gallery, make_v = market_splits(TRANSFORMER_HW, ZOO_SPLIT_PART)
     keep_v, counts_v, _ = phase_retrieval(query, gallery, make_v,
                                           backbone="vit")
     keep_v.update(query_cams=query.cams, gallery_cams=gallery.cams)
@@ -4530,71 +4917,91 @@ def main():
     rows += vit_rows
     del keep_v, query, gallery
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        state, cfg, source, trained, batches = phase_train(tmp)
-        with process_group("train") as mesh:
-            phase_train_mesh(tmp, mesh)
-        phase_train_card_vs_cpu()
-        counts, checks = phase_continual(state, cfg, source, tmp)
-        del state, source
-        torch.cuda.empty_cache()
-        for row in dist_rows:
-            kname = row["name"].split()[0]
-            row["launches_continual_run"] = counts.get(kname, 0)
-            row["max_abs_err_continual_run"] = checks[kname]["max_abs_err"]
-            row["site_continual_run"] = checks[kname]["site"]
-        zoo_state, zoo_cfg, zoo_batches, zoo_step_ms = phase_train_zoo(tmp)
-        phase_train_card_vs_cpu("resnet50", spread=True)
-        # phase 24: CARes18 with BatchRenorm on the same tree
-        ca_state, ca_cfg, ca_batches, ca_step_ms = phase_train_zoo(
-            tmp, "cares18", renorm=True)
-        phase_train_card_vs_cpu("cares18", renorm=True)
-        phase_train_card_vs_cpu("emares18")
-        # phase 28: OSNet through train_main, PLR-OSNet's dual-branch step
-        phase_train_zoo(tmp, "osnet")
-        torch.cuda.empty_cache()
+    tmp = train_dir
+    state, cfg, source, trained, batches = phase_train(tmp, trees)
+    with process_group("train") as mesh:
+        phase_train_mesh(tmp, mesh)
+    phase_train_card_vs_cpu()
+    counts, checks = phase_continual(state, cfg, source, tmp)
+    del state, source
+    torch.cuda.empty_cache()
+    for row in dist_rows:
+        kname = row["name"].split()[0]
+        row["launches_continual_run"] = counts.get(kname, 0)
+        row["max_abs_err_continual_run"] = checks[kname]["max_abs_err"]
+        row["site_continual_run"] = checks[kname]["site"]
+    zoo_state, zoo_cfg, zoo_batches, zoo_step_ms = phase_train_zoo(tmp)
+    phase_train_card_vs_cpu("resnet50", spread=True)
+    # phase 24: CARes18 with BatchRenorm on the same tree
+    ca_state, ca_cfg, ca_batches, ca_step_ms = phase_train_zoo(
+        tmp, "cares18", renorm=True)
+    phase_train_card_vs_cpu("cares18", renorm=True)
+    phase_train_card_vs_cpu("emares18")
+    # phase 28: OSNet through train_main, PLR-OSNet's dual-branch step
+    phase_train_zoo(tmp, "osnet")
+    torch.cuda.empty_cache()
+    # phase 40 (a)'s CLI run beside the card-vs-CPU checks
+    torchrun = start_torchrun_cli(tmp)
+    try:
         phase_train_card_vs_cpu("osnet", spread=True)
         phase_train_card_vs_cpu("plr_osnet", spread=True)
         # phase 32's card-vs-CPU steps, before any trace
         for backbone in TRANSFORMER_STEP:
             phase_train_card_vs_cpu(backbone, spread=True)
-        # traced last: a trace slows the process's later launches
-        emit("train step profile", **step_profile(trained, cfg, batches))
-        del trained, batches
-        prof = step_profile(zoo_state, zoo_cfg, zoo_batches)
-        emit("train step profile resnet50", step_ms_median=zoo_step_ms,
-             device_idle_share=1 - prof["device_ms_per_step"] / zoo_step_ms,
-             **prof)
-        del zoo_state, zoo_batches
-        prof = step_profile(ca_state, ca_cfg, ca_batches)
-        emit("train step profile cares18 --renorm", step_ms_median=ca_step_ms,
-             device_idle_share=1 - prof["device_ms_per_step"] / ca_step_ms,
-             **prof)
-        del ca_state, ca_batches
-        for instances in (0, 4):
-            phase_train_plr(instances)
-        # phase 32: the transformer step on both optimizer branches
-        for backbone in TRANSFORMER_STEP:
-            for instances in (4, 0):
-                phase_train_transformer(backbone, instances)
-        # phases 33-34: video ReID through video_main, then the card-vs-CPU
-        # step and eval forward
-        torch.cuda.empty_cache()
-        phase_video_train(tmp)
-        torch.cuda.empty_cache()
-        phase_video_card_vs_cpu()
-        # phases 35-39: the GAN programs, detector training, card vs CPU
-        torch.cuda.empty_cache()
-        phase_gan(tmp)
-        phase_train_detector()
+        finish_torchrun_cli(torchrun)
+    finally:
+        stop_group(torchrun["proc"])
+    # traced last: a trace slows the process's later launches
+    emit("train step profile", **step_profile(trained, cfg, batches))
+    del trained, batches
+    prof = step_profile(zoo_state, zoo_cfg, zoo_batches)
+    emit("train step profile resnet50", step_ms_median=zoo_step_ms,
+         device_idle_share=1 - prof["device_ms_per_step"] / zoo_step_ms,
+         **prof)
+    del zoo_state, zoo_batches
+    prof = step_profile(ca_state, ca_cfg, ca_batches)
+    emit("train step profile cares18 --renorm", step_ms_median=ca_step_ms,
+         device_idle_share=1 - prof["device_ms_per_step"] / ca_step_ms,
+         **prof)
+    del ca_state, ca_batches
+    for instances in (0, 4):
+        phase_train_plr(instances)
+    # phase 32: the transformer step on both optimizer branches
+    for backbone in TRANSFORMER_STEP:
+        for instances in (4, 0):
+            phase_train_transformer(backbone, instances)
+    # phases 33-34: video ReID through video_main, then the card-vs-CPU
+    # step and eval forward
+    torch.cuda.empty_cache()
+    phase_video_train(tmp)
+    torch.cuda.empty_cache()
+    phase_video_card_vs_cpu()
+    # phases 35-39: the GAN programs, detector training, card vs CPU
+    torch.cuda.empty_cache()
+    phase_gan(tmp)
+    phase_train_detector()
+    # phase 41's fresh process loads the int8 artifact beside the GAN
+    # card-vs-CPU checks, then runs its chunks alone on the card
+    worker = ArtifactWorker(int8_job, artifact_dir.name)
+    try:
         phase_gan_card_vs_cpu()
+        artifact = hold_chunk_artifact("int8", int8_job, worker.result(),
+                                       per_chunk=(2, 4))
+    finally:
+        worker.stop()
+        artifact_dir.cleanup()
+    del int8_job
+    for row in track_rows:
+        row["launches_artifact_run"] = artifact["site_launches"].get(
+            f"{row['name'].split()[0]} {row['site']}", 0)
+        assert row["launches_artifact_run"] > 0, row
     phase_deeplab()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K6/K7 on the continual run: its launches, and each held against its
     # plain version at the shape the run gave it
     CONTINUAL_KEYS = ("launches_continual_run", "max_abs_err_continual_run",
-                      "site_continual_run")
+                      "site_continual_run", "launches_artifact_run")
     kernels = {"kernels": [
         {k: row[k] for k in keys + CONTINUAL_KEYS if k in row}
         for row in rows]}

@@ -358,20 +358,26 @@ def build_detector(args, max_dets: int, device):
                             max_dets=max_dets)
 
 
-def _track(args, device):
+def track_config(args):
+    """The tracker configuration of a `track` run's parsed flags."""
     from .tracking.methods import method_config
+
+    return method_config(args.tracking_method,
+                         min_confidence=args.conf_thres,
+                         max_dets=args.max_dets,
+                         crop_hw=tuple(args.crop_hw),
+                         crop_downsample=args.crop_downsample,
+                         frame_crop_cap=args.frame_crop_cap or None,
+                         embed_every=max(1, args.embed_every),
+                         gmc={"auto": None, "on": True,
+                              "off": False}[args.gmc])
+
+
+def _track(args, device):
     from .tracking.mot import load_mot_detections
     from .tracking.pipeline import TrackingPipeline
 
-    cfg = method_config(args.tracking_method,
-                        min_confidence=args.conf_thres,
-                        max_dets=args.max_dets,
-                        crop_hw=tuple(args.crop_hw),
-                        crop_downsample=args.crop_downsample,
-                        frame_crop_cap=args.frame_crop_cap or None,
-                        embed_every=max(1, args.embed_every),
-                        gmc={"auto": None, "on": True,
-                             "off": False}[args.gmc])
+    cfg = track_config(args)
     embed_fn, _ = build_embed(args.backbone, args.num_classes, cfg.crop_hw,
                               device, ckpt=args.ckpt, int8=args.int8,
                               source=args.source)
@@ -691,7 +697,8 @@ def train_main(argv=None, device: Optional[str] = "cuda",
     every local device, under `torchrun` (WORLD_SIZE set) the loop is
     data parallel over the process group's ranks that divide the batch
     (`parallel.fit_mesh`), with rank 0 writing the checkpoint and the
-    artifact; without it, one device."""
+    artifact, and a rank outside that group returns None at once
+    (`parallel.sits_out`); without it, one device."""
     p = _train_parser()
     args = p.parse_args(argv)
     refuse_video_backbone(p, args.backbone, "train_main")
@@ -720,14 +727,16 @@ def train_main(argv=None, device: Optional[str] = "cuda",
                     "emares18)")
     from .data.dataset import ReIDDataset
     from .data.datasets import build_dataset
-    from .parallel.mesh import mesh_from_env
+    from .parallel.mesh import mesh_from_env, sits_out
     from .train.image_train import (produce_pseudo_data, train_cnn,
                                     train_continual)
 
+    mesh = mesh_from_env(args.bs, device)
+    if sits_out(mesh, args.bs):
+        return None
     raw = build_dataset(args.dataset, args.root)
     cfg = _train_cfg(args, raw.num_train_pids)
     h, w = cfg.data.height, cfg.data.width
-    mesh = mesh_from_env(cfg.train.batch_size, device)
     if mesh is not None:
         print(f"data parallel over {mesh.size} rank(s) of the process "
               "group", flush=True)
@@ -753,7 +762,8 @@ def video_main(argv=None, device: Optional[str] = "cuda"):
     """Video ReID training (ref video_reid_train.py main :198-231), the
     flags and defaults of `reid_tpu/cli.py:video_main`; prints the final
     loss and returns the flax variable tree. Under `torchrun` the loop is
-    data parallel over the ranks that divide `--bs`, as `train_main`."""
+    data parallel over the ranks that divide `--bs`, and the other ranks
+    return None, as in `train_main`."""
     p = argparse.ArgumentParser("video_reid_train")
     p.add_argument("--gt_paths", nargs="+", required=True)
     p.add_argument("--prefix", default="datasets/MOT16/train/")
@@ -764,13 +774,15 @@ def video_main(argv=None, device: Optional[str] = "cuda"):
     args = p.parse_args(argv)
 
     from .config import Config
-    from .parallel.mesh import mesh_from_env
+    from .parallel.mesh import mesh_from_env, sits_out
     from .train.video_train import VideoTrackletDataset, train_video
 
+    mesh = mesh_from_env(args.bs, device)
+    if sits_out(mesh, args.bs):
+        return None
     ds = VideoTrackletDataset(args.gt_paths, seq_len=args.seq_len,
                               lamda=args.crop_factor,
                               prefix_image_path=args.prefix)
-    mesh = mesh_from_env(args.bs, device)
     # the JAX CLI passes no mesh (one device, or all of them by default)
     variables, losses = train_video(Config(), ds, epochs=args.epochs,
                                     batch_size=args.bs,

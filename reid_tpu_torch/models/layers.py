@@ -107,8 +107,19 @@ class Conv2d(nn.Conv2d):
             # TF32 holds a bf16 value exactly and multiplies two exactly,
             # so on the card the f32 conv of these operands may take the
             # TF32 tensor cores without changing what it computes
-            with _tf32_convs():
-                y = F.conv2d(x.to(torch.float32), w.to(torch.float32), **kw)
+            xf, wf = x.to(torch.float32), w.to(torch.float32)
+            # an exported graph records no `with` block, so under export
+            # the flag is the op's; eager keeps the block, as training
+            # differentiates through these convs (OSNet, EMA attention,
+            # the detector) and the op has no autograd formula
+            if torch.compiler.is_exporting():
+                from ..ops.conv_tf32 import conv2d_tf32
+                y = conv2d_tf32(xf, wf, list(self.stride),
+                                list(self.padding), list(self.dilation),
+                                self.groups, True)
+            else:
+                with _tf32_convs():
+                    y = F.conv2d(xf, wf, **kw)
         elif self.f32_sum and x.device.type == "cpu":
             y = F.conv2d(x.to(torch.float32), w.to(torch.float32),
                          **kw).to(self.dtype)

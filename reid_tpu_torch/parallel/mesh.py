@@ -160,6 +160,21 @@ def mesh_from_env(batch_size: Optional[int] = None, device="cuda"
     return fit_mesh(batch_size) if batch_size else default_mesh()
 
 
+def sits_out(mesh: Optional[Mesh], batch_size: int) -> bool:
+    """Whether this rank is outside `mesh`: under `torchrun`, `fit_mesh`
+    keeps the first ranks whose count divides the batch, as the JAX
+    package's `fit_mesh` uses fewer devices. The train CLIs then return
+    without training or writing anything, and this rank says so in one
+    line; it has already joined every collective that `make_mesh` needs
+    (`new_group`), so the group trains as a world of its own size."""
+    if mesh is None or mesh.member:
+        return False
+    print(f"rank {dist.get_rank()} of {dist.get_world_size()} sits this "
+          f"run out: the batch of {batch_size} divides over the first "
+          f"{mesh.size} rank(s) (fit_mesh)", flush=True)
+    return True
+
+
 def close_process_group() -> None:
     """Leave the process group, where this process joined one (the
     launchers' last step under `torchrun`)."""

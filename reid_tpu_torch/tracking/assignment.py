@@ -3,17 +3,21 @@
 Counterpart of `reid_tpu/tracking/assignment.py`. Every function takes a
 leading stream axis (S, ...), which the JAX package gets from `jax.vmap`;
 a 2-D input is one stream and runs the same code at S = 1. The JAX package
-runs the early-exit loops as `lax.while_loop`s on the device; eager PyTorch
-has no device-side loop, so each round here reads its exit condition on the
-host: one small synchronisation a round for all S streams. A round runs
-while any stream has work, and a stream that has finished is frozen by a
-mask, so each stream's matching is exactly that of its own run. The
-matchings are the JAX ones: ties break to the first index, as `argmin` /
-`argmax` do in both frameworks.
+runs the early-exit loops as `lax.while_loop`s on the device. Here each
+loop is a `cond` and a `body` that `device_loop` drives in one of two
+forms: in eager PyTorch, which has no device-side loop, each round reads
+its exit condition on the host (one small synchronisation a round for all
+S streams); under `torch.export` the same functions become one
+`while_loop` node of the exported graph, so an exported chunk of the
+tracker holds no host read. A round runs while any stream has work, and a
+stream that has finished is frozen by a mask, so each stream's matching is
+exactly that of its own run. The matchings are the JAX ones: ties break to
+the first index, as `argmin` / `argmax` do in both frameworks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -37,6 +41,57 @@ def host_reads() -> int:
 
 def reset_host_reads() -> None:
     _HOST_READS[0] = 0
+
+
+def device_loop(cond, body, carry, max_iters):
+    """Runs `carry = body(*carry)` while fewer than `max_iters` rounds have
+    run and `cond(*carry)` (a one-element bool tensor; None: always) holds;
+    returns the last carry, a tuple of tensors. `body` returns new tensors
+    and never one of its arguments.
+
+    Eager: a Python loop that reads `cond` on the host once a round
+    (`host_read`, counted), and a tensor `max_iters` once before the
+    first. Under `torch.export`: one `while_loop` whose carry adds an
+    int64 round counter, `max_iters` staying a tensor, so the exported
+    graph reads nothing on the host. (In eager mode `while_loop` compiles
+    its functions with Dynamo on every call, so the eager path keeps its
+    host-read loop.)"""
+    carry = tuple(carry)
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops import while_loop
+
+        dev = carry[0].device
+        # a Python int bound would be lifted as a graph input of a nested
+        # loop's functions, which the exported program's verifier refuses
+        bound = max_iters if isinstance(max_iters, torch.Tensor) else \
+            torch.full((), max_iters, dtype=torch.int64, device=dev)
+
+        def go(it, *xs):
+            more = it < bound
+            return more if cond is None else more & cond(*xs)
+
+        def step(it, *xs):
+            return (it + 1, *body(*xs))
+
+        it0 = torch.zeros((), dtype=torch.int64, device=dev)
+        # export traces the functions with Dynamo, which it lets take every
+        # size as symbolic; the bodies are written for static shapes (a
+        # symbolic one does not line up the auction's padded slices). A
+        # loop nested in another loop's functions inherits the setting,
+        # and Dynamo refuses a config patch inside a traced function.
+        static = contextlib.nullcontext() \
+            if torch.compiler.is_dynamo_compiling() else \
+            torch._dynamo.config.patch(assume_static_by_default=True,
+                                       automatic_dynamic_shapes=False)
+        with static:
+            return tuple(while_loop(go, step, (it0, *carry))[1:])
+    if isinstance(max_iters, torch.Tensor):
+        max_iters = host_read(max_iters)
+    it = 0
+    while it < max_iters and (cond is None or host_read(cond(*carry))):
+        carry = tuple(body(*carry))
+        it += 1
+    return carry
 
 
 def _streams(fn):
@@ -70,12 +125,12 @@ def auction_assign(cost: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     dev = cost.device
     benefit = -cost.to(torch.float32)
     max_iters = int(4 * n * (2 * INF_COST / eps + n))
-    prices = torch.zeros((s, n), device=dev)
-    r2c = torch.full((s, n), -1, dtype=torch.int64, device=dev)
-    c2r = torch.full((s, n), -1, dtype=torch.int64, device=dev)
     ar = torch.arange(n, device=dev)
-    it = 0
-    while it < max_iters and host_read((r2c < 0).any()):
+
+    def unassigned_left(prices, r2c, c2r):
+        return (r2c < 0).any()
+
+    def bid(prices, r2c, c2r):
         unassigned = r2c < 0                                     # (S, N)
         live = unassigned.any(dim=1, keepdim=True)               # (S, 1)
         values = benefit - prices[:, None, :]
@@ -99,8 +154,18 @@ def auction_assign(cost: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
         won = (win_row[:, None, :] == ar[:, None]) & contested[:, None, :]
         r2c = torch.where(won.any(dim=2), torch.argmax(won.to(torch.int8),
                                                        dim=2), r2c)
-        it += 1
+        return prices, r2c, c2r
+
+    _, r2c, _ = device_loop(unassigned_left, bid, (
+        torch.zeros((s, n), device=dev),
+        torch.full((s, n), -1, dtype=torch.int64, device=dev),
+        torch.full((s, n), -1, dtype=torch.int64, device=dev)), max_iters)
     return r2c.to(torch.int32)
+
+
+def _pair_left(c, r2c):
+    """The greedy loops' condition: some stream has a pair below INF_COST."""
+    return c.min() < INF_COST
 
 
 @_streams
@@ -111,10 +176,8 @@ def greedy_assign(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
     dev = cost.device
     rows = torch.arange(t, device=dev)[None, :, None]
     cols = torch.arange(d, device=dev)[None, None, :]
-    c = cost.to(torch.float32)
-    r2c = torch.full((s, t), -1, dtype=torch.int32, device=dev)
-    it = 0
-    while it < n_iters and host_read(c.min() < INF_COST):
+
+    def take_cheapest(c, r2c):
         flat = torch.argmin(c.reshape(s, t * d), dim=1)          # (S,)
         i, j = (flat // d)[:, None, None], (flat % d)[:, None, None]
         # a stream with no pair left is frozen
@@ -123,8 +186,11 @@ def greedy_assign(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
         r2c = torch.where(ok[:, 0] & (rows[:, :, 0] == i[:, 0]),
                           j[:, 0].to(torch.int32), r2c)
         c = torch.where(ok & ((rows == i) | (cols == j)), INF_COST, c)
-        it += 1
-    return r2c
+        return c, r2c
+
+    return device_loop(_pair_left, take_cheapest, (
+        cost.to(torch.float32),
+        torch.full((s, t), -1, dtype=torch.int32, device=dev)), n_iters)[1]
 
 
 @_streams
@@ -136,10 +202,8 @@ def greedy_assign_rounds(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
     dev = cost.device
     ar_t = torch.arange(t, device=dev)
     ar_d = torch.arange(d, device=dev)
-    c = cost.to(torch.float32)
-    r2c = torch.full((s, t), -1, dtype=torch.int32, device=dev)
-    it = 0
-    while it < n_iters and host_read(c.min() < INF_COST):
+
+    def take_mutual(c, r2c):
         row_best = torch.argmin(c, dim=2)                        # (S, T)
         col_best = torch.argmin(c, dim=1)                        # (S, D)
         row_min = torch.amin(c, dim=2)
@@ -149,8 +213,11 @@ def greedy_assign_rounds(cost: torch.Tensor, n_iters: int) -> torch.Tensor:
         col_hit = (mutual[:, :, None] & (row_best[:, :, None] == ar_d)
                    ).any(dim=1)                                  # (S, D)
         c = torch.where(mutual[:, :, None] | col_hit[:, None, :], INF_COST, c)
-        it += 1
-    return r2c
+        return c, r2c
+
+    return device_loop(_pair_left, take_mutual, (
+        cost.to(torch.float32),
+        torch.full((s, t), -1, dtype=torch.int32, device=dev)), n_iters)[1]
 
 
 @_streams

@@ -23,12 +23,15 @@ import torch
 
 from ..config import TrackerConfig
 from ..utils.timing import StageTimer
+from .assignment import device_loop
 from .gmc import chunk_affines_translation, estimate_affine
 from .methods import uses_gmc
 from .mot import write_mot_txt
-from .tracker import (Tracker, _update_impl, apply_gmc, stack_states,
-                      unstack_state)
+from .tracker import (Tracker, TrackerState, _update_impl, apply_gmc,
+                      stack_states, unstack_state)
 
+# the tracker's per-frame outputs, in the order of the serving boundary
+_OUT_KEYS = ("tlwh", "ids", "valid")
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
 
@@ -280,19 +283,46 @@ class ChunkedTracker:
     def associate(self, states, tlwh, conf, feats, valid, affines=None):
         """The per-frame update over the chunk, all streams at once;
         `affines` (S, T, 2, 3) warp the tracks first when GMC is on.
-        Returns (states, outputs (S, T, ...))."""
-        outs = []
-        for i in range(tlwh.shape[1]):
-            if self.use_gmc:
-                states = apply_gmc(states, affines[:, i])
-            hf = np.bool_(i % self.k_embed == 0) if self.k_embed > 1 \
-                else True
-            states, out = _update_impl(self.cfg, states, tlwh[:, i],
-                                       conf[:, i], feats[:, i], valid[:, i],
-                                       has_feats=hf)
-            outs.append(out)
-        return states, {k: torch.stack([o[k] for o in outs], dim=1)
-                        for k in outs[0]}
+        Returns (states, outputs (S, T, ...)).
+
+        The frames run as one `device_loop` of k_embed frames a round (so
+        each frame's cadence phase is static), each frame's outputs
+        written into (S, T, ...) buffers: eager, a Python loop that reads
+        nothing on the host; under `torch.export`, one `while_loop` whose
+        graph holds one round's update whatever the chunk's length."""
+        inputs = (tlwh, conf, feats, valid, affines)
+        n = len(TrackerState._fields)
+        t, k = tlwh.shape[1], self.k_embed
+        s, slots = states.mean.shape[:2]
+        dev = states.mean.device
+        bufs = (torch.zeros((s, t, slots, 4), device=dev),
+                torch.zeros((s, t, slots), dtype=torch.int32, device=dev),
+                torch.zeros((s, t, slots), dtype=torch.bool, device=dev))
+
+        def frames_of_round(i, *carry):
+            st, outs = TrackerState(*carry[:n]), carry[n:]
+            for j in range(k):
+                f = (i + j).reshape(1)
+                st, out = self._frame(
+                    st, lambda x: x.index_select(1, f)[:, 0], j, *inputs)
+                outs = [b.index_copy(1, f, out[key][:, None])
+                        for b, key in zip(outs, _OUT_KEYS)]
+            return (i + k, *st, *outs)
+
+        i0 = torch.zeros((), dtype=torch.int64, device=dev)
+        carry = device_loop(None, frames_of_round, (i0, *states, *bufs),
+                            t // k)
+        return (TrackerState(*carry[1:n + 1]),
+                dict(zip(_OUT_KEYS, carry[n + 1:])))
+
+    def _frame(self, states, at, phase, tlwh, conf, feats, valid, affines):
+        """One frame's update: `at(x)` takes the frame's slice of each
+        (S, T, ...) input, `phase` is its place in the embed cadence."""
+        if self.use_gmc:
+            states = apply_gmc(states, at(affines))
+        hf = np.bool_(phase == 0) if self.k_embed > 1 else True
+        return _update_impl(self.cfg, states, at(tlwh), at(conf), at(feats),
+                            at(valid), has_feats=hf)
 
     def run_streams(self, states, frames, tlwh, conf, valid, affines=None,
                     prev_frame=None, timing: Optional[dict] = None):
@@ -340,6 +370,30 @@ def make_chunked_tracker(cfg: TrackerConfig, embed_fn, crop_hw,
         frame_crop_cap = None
     return ChunkedTracker(cfg, embed_fn, crop_hw, chunk, crop_budget,
                           use_gmc, frame_crop_cap)
+
+
+def chunk_serving_fn(tracker: ChunkedTracker) -> Callable:
+    """One stream's chunk as a function of flat tensors: the serving
+    boundary of an exported chunk (`utils.export.export_serving_fn(...,
+    dynamic_batch=False)`), as the JAX package's export of its chunk
+    program has it.
+
+    In: the 13 `TrackerState` fields, then frames (T, H, W, 3) uint8, tlwh
+    (T, D, 4), conf and valid (T, D) and, where the tracker compensates
+    camera motion, prev_frame (H, W, 3), the frame before the chunk (the
+    first frame for a sequence's first chunk), from which the graph
+    estimates the chunk's affines. Out: the 13 new state fields, then
+    tlwh (T, max_tracks, 4), ids and valid (T, max_tracks)."""
+    n = len(TrackerState._fields)
+
+    def serving(*flat):
+        frames, tlwh, conf, valid = flat[n:n + 4]
+        prev = flat[n + 4] if tracker.use_gmc else None
+        state, out = tracker(TrackerState(*flat[:n]), frames, tlwh, conf,
+                             valid, prev_frame=prev)
+        return tuple(state) + tuple(out[k] for k in _OUT_KEYS)
+
+    return serving
 
 
 class TrackingPipeline:

@@ -8,8 +8,9 @@ stream axis on every tensor (the JAX package's `jax.vmap` over streams,
 `reid_tpu/tracking/streams.py`): S independent streams share each launch
 and each host read. One stream is the same code at S = 1 (`stack_states`
 / `unstack_state`). Where the JAX package runs a device-side `while_loop`
-(the ORU replay) this code reads the loop bound on the host once per
-frame, for all streams.
+(the ORU replay) eager code reads the loop bound on the host once per
+frame, for all streams; under `torch.export` it is a `while_loop` node
+(`assignment.device_loop`).
 
 Scatters of the JAX code are rewritten so they never write out of range
 (`mode="drop"` targets are routed to a spare slot that is cut off) and
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..config import TrackerConfig
-from .assignment import INF_COST, gated_matches, host_read
+from .assignment import INF_COST, device_loop, gated_matches
 from .costs import appearance_cost, diou_matrix, iou_matrix, l2_normalize
 from .kalman import (CHI2_GATE_4DOF, kalman_gating_distance,
                      kalman_initiate, kalman_predict, kalman_update)
@@ -302,26 +303,33 @@ def _update_impl(cfg: TrackerConfig, state: TrackerState, tlwh, conf, feats,
         # OCSort observation-centric re-update: a track re-associated after
         # a gap replays predict+update along a virtual trajectory from its
         # frozen state. Iterations past the longest reacquired gap are
-        # no-ops, so the loop stops there (the bound is read on the host,
-        # the longest over all streams).
+        # no-ops, so the loop stops there: the bound, the longest over all
+        # streams, is read on the host in eager mode and stays on the
+        # device under export (`device_loop`).
         gap_in = state.time_since_update
         reacq = matched & (gap_in >= 1) & (state.hits > 0)
         n_steps = (gap_in + 1).to(torch.float32)
         box1 = state.last_obs
         box2 = z_matched
         n_max = torch.amax(torch.where(reacq, n_steps, 0.0))
-        n_cap = host_read(torch.clamp(n_max, max=float(cfg.max_age + 1)))
-        om, oc = state.frozen_mean, state.frozen_cov
-        i = 1
-        while i <= n_cap:
+        n_cap = torch.clamp(n_max, max=float(cfg.max_age + 1))
+        # `1 / n_steps` times i is what the eager `i / n_steps` computes
+        # (`Tensor.__rdiv__`), for a Python i and an f32 tensor i alike
+        inv_steps = n_steps.reciprocal()
+
+        def replay(i, om, oc):
             pm, pc = kalman_predict(om, oc)
-            frac = torch.clamp(i / n_steps, max=1.0)[..., None]
+            frac = torch.clamp(inv_steps * i, max=1.0)[..., None]
             virt = box1 + (box2 - box1) * frac
             um, uc = kalman_update(pm, pc, virt)
             live = reacq & (i <= n_steps)
-            om = torch.where(live[..., None], um, om)
-            oc = torch.where(live[..., None, None], uc, oc)
-            i += 1
+            return (i + 1, torch.where(live[..., None], um, om),
+                    torch.where(live[..., None, None], uc, oc))
+
+        i0 = torch.ones((), device=dev) if torch.compiler.is_exporting() \
+            else 1
+        _, om, oc = device_loop(None, replay, (
+            i0, state.frozen_mean, state.frozen_cov), n_cap)
         mean = torch.where(reacq[..., None], om, mean)
         cov = torch.where(reacq[..., None, None], oc, cov)
 

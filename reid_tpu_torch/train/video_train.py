@@ -230,6 +230,9 @@ def train_video(cfg: Config, dataset: VideoTrackletDataset,
 
     del seq_len
     dp = mesh is not None and mesh.collective
+    if dp and not mesh.member:
+        raise ValueError("this rank is outside the mesh (fit_mesh keeps the "
+                         "first ranks whose count divides the batch)")
     if dp and batch_size % mesh.size:
         raise ValueError(f"batch_size {batch_size} not divisible by mesh "
                          f"size {mesh.size}")

@@ -41,7 +41,8 @@ def export_serving_fn(fn: Callable, example_args: Tuple, path: str,
     With `dynamic_batch`, dim 0 of every argument is the one symbolic size
     `b`; give examples of batch 2 or more, so that tracing does not
     specialise `b` to 0 or 1. Tracing runs outside inference mode, whose
-    tensors `torch.export` cannot trace."""
+    tensors `torch.export` cannot trace. The file holds the program and
+    the tensors it closes over, not the example arguments."""
     shapes = None
     if dynamic_batch:
         b = torch.export.Dim("b")
@@ -50,6 +51,9 @@ def export_serving_fn(fn: Callable, example_args: Tuple, path: str,
     with torch.inference_mode(False), torch.no_grad():
         ep = torch.export.export(_Fn(fn), tuple(example_args),
                                  dynamic_shapes=shapes)
+    # the archive would otherwise carry the example arguments, a whole
+    # chunk of frames for a tracking chunk
+    ep.example_inputs = None
     torch.export.save(ep, path)
     return ep
 

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from ..models.layers import Conv2d, Linear
 from ..models.seres18 import SEBasicBlock
+from ..ops.conv_tf32 import conv2d_tf32
 from ..ops.qblock import QBlockParams, fold_bn, se_basic_block_s8
 from ..ops.qconv import (conv3x3_s8, conv_acc_plain, pack_conv_weight,
                          qconv_applicable, quantize_s8)
@@ -214,11 +215,9 @@ def grouped_acc(xq: torch.Tensor, wq: torch.Tensor, stride: int,
     the card (exact while a group's products sum below 2^24, which
     `QConv2d` checks)."""
     dt = torch.float64 if xq.device.type == "cpu" else torch.float32
-    c = torch.backends.cudnn
-    with c.flags(enabled=c.enabled, benchmark=c.benchmark,
-                 deterministic=c.deterministic, allow_tf32=False):
-        acc = F.conv2d(xq.permute(0, 3, 1, 2).to(dt), wq.to(dt),
-                       stride=stride, padding=padding, groups=groups)
+    # TF32 off, as a node of an exported graph too (`ops/conv_tf32.py`)
+    acc = conv2d_tf32(xq.permute(0, 3, 1, 2).to(dt), wq.to(dt),
+                      [stride] * 2, [padding] * 2, [1, 1], groups, False)
     return acc.permute(0, 2, 3, 1).to(torch.float32)
 
 

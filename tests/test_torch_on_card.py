@@ -41,7 +41,9 @@ Tolerances:
     another algorithm than a single one).
   * the int8 serving artifact (torch.export, K1 and K2 as custom ops)
     loaded on the card: K1 and K2 launched (counted) and its output equal
-    to the eager int8 embed bit for bit.
+    to the eager int8 embed bit for bit; the int8 tracking chunk as an
+    artifact: K1 and K2 launched, ids and valid equal to the eager
+    chunk's, tlwh within 1e-4.
   * the train step: two bf16 steps of SERes18 at 256x128 (B = 16, the
     augmentation on the card) give finite losses, parameters and DCC
     tables of unit rows; one f32 step from one state on the card and on
@@ -674,6 +676,58 @@ def test_int8_artifact_on_card_launches_kernels(cuda, tmp_path):
                 counts = launch_counts()
                 assert counts[tq.NAME] == 2 and counts[tqb.NAME] == 4, counts
                 assert torch.equal(got, want), (b, (got - want).abs().max())
+
+
+def test_int8_chunk_artifact_on_card(cuda, tmp_path):
+    """The int8 tracking chunk exported with torch.export
+    (`pipeline.chunk_serving_fn`) and reloaded: its two chunks launch K1
+    and K2 (2 and 4 a chunk, one embed call each) and equal the eager
+    chunk's ids and valid, tlwh within 1e-4."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    from _scenes import build_mot_scene
+    from reid_tpu_torch.cli import full_f32
+    from reid_tpu_torch.tracking.methods import method_config
+    from reid_tpu_torch.tracking.pipeline import (chunk_serving_fn,
+                                                  make_chunked_tracker)
+    from reid_tpu_torch.tracking.tracker import init_tracker_state
+    from reid_tpu_torch.utils.export import (export_serving_fn,
+                                             load_serving_fn)
+
+    crop, t, chunk = (64, 32), 16, 8
+    data = [torch.from_numpy(x).to(cuda) for x in build_mot_scene(
+        t_total=t, n_t=4, max_dets=8, h=120, w=160, seed=0)[:4]]
+    cfg = method_config("strongsort", max_tracks=16, max_dets=8,
+                        crop_hw=crop, n_init=2)
+    serving = chunk_serving_fn(make_chunked_tracker(
+        cfg, card_int8_embed(cuda, crop), crop, chunk=chunk))
+    state = tuple(init_tracker_state(16, 528, device=cuda))
+    chunks = [tuple(x[s:s + chunk] for x in data)
+              for s in range(0, t, chunk)]
+    path = str(tmp_path / "chunk.pt2")
+    with full_f32():
+        export_serving_fn(serving, state + chunks[0], path,
+                          dynamic_batch=False)
+        loaded = load_serving_fn(path)
+        with torch.inference_mode():
+            runs = []
+            for fn in (serving, loaded):
+                st, outs = state, []
+                reset_launch_counts()
+                for c in chunks:
+                    res = fn(*st, *c)
+                    st, outs = res[:len(state)], outs + [res[len(state):]]
+                torch.cuda.synchronize()
+                runs.append((outs, launch_counts()))
+    (want, _), (got, counts) = runs
+    assert counts[tq.NAME] == 2 * len(chunks), counts
+    assert counts[tqb.NAME] == 4 * len(chunks), counts
+    for (tl, ids, vd), (wtl, wids, wvd) in zip(got, want):
+        assert torch.equal(vd, wvd) and torch.equal(ids, wids)
+        assert float((tl[wvd] - wtl[wvd]).abs().max()) <= 1e-4
+    assert sum(int(w[2].sum()) for w in want) > 20
 
 
 def _train_setup(c, b, hw):

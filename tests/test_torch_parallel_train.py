@@ -23,7 +23,12 @@ tests/test_parallel.py:80-135's sizes:
     2 x 32 x 16 amplify the rounding; MADGRAD, like Adam, moves an
     element whose gradient is rounding noise by about lr either way, so
     the weights are held through the gradient), the centers within
-    1e-5 of their largest value; both ranks hold the same weights.
+    1e-5 of their largest value; both ranks hold the same weights;
+  * `cli.train_main` (bf16, as under `torchrun`) on three ranks, whose
+    count does not divide the batch of 8: `fit_mesh` keeps ranks 0-1,
+    which end bit-equal to the world-2 run, and rank 2 says in one line
+    that it sits the run out and returns without training or writing a
+    file (its launch exits 0).
 """
 
 import dataclasses
@@ -104,14 +109,29 @@ def video_job():
          np.array([0, 0, 1, 1], np.int32))]}
 
 
+# train_main's run: 16 images of 4 ids at 64x32, one epoch of two PK
+# batches of 8 = 4 x 2
+TRAIN_MAIN = {"tree": dict(num_pids=4, per_id=4, height=64, width=32,
+                           query_per_id=1, gallery_per_id=1),
+              "flags": ["--epochs", "1", "--bs", "8", "--instance", "2",
+                        "--height", "64", "--width", "32"]}
+
+
 @pytest.fixture(scope="module")
 def world2(train_job):
-    job = {"programs": ["train_cnn", "inference", "video"],
+    job = {"programs": ["train_cnn", "inference", "video", "train_main"],
            "train_cnn": {k: train_job[k] for k in (
                "config", "variables", "draws", "centers", "dcc",
                "dataset")},
-           "inference": retrieval_job(), "video": video_job()}
+           "inference": retrieval_job(), "video": video_job(),
+           "train_main": TRAIN_MAIN}
     return launch(2, job, timeout=120)
+
+
+@pytest.fixture(scope="module")
+def world3():
+    return launch(3, {"programs": ["train_main"], "train_main": TRAIN_MAIN},
+                  timeout=120)
 
 
 def rel(got, want):
@@ -183,3 +203,23 @@ def test_video_step_world2_matches_world1(world2):
             <= 1e-5 * float(want["centers"].abs().max())
         for a, b in zip(got["params"], world2[0]["video"]["params"]):
             assert torch.equal(a, b)
+
+
+def test_train_main_world3_group_matches_world2(world2, world3):
+    """Ranks 0-1 of three train as a world of two; rank 2 sits it out."""
+    for r in (0, 1):
+        got, want = world3[r]["train_main"], world2[r]["train_main"]
+        assert got["trained"] and want["trained"]
+        assert len(got["params"]) == len(want["params"]) > 0
+        for a, b in zip(got["params"], want["params"]):
+            assert torch.equal(a, b)
+        assert got["files"] == want["files"]
+        assert "data parallel over 2 rank(s) of the process group" in \
+            got["printed"]
+    assert world3[0]["train_main"]["files"] == [
+        "cnn_net_checkpoint_market1501.npz"]
+    out = world3[2]["train_main"]
+    assert not out["trained"] and out["files"] == [] and out["params"] == []
+    assert out["printed"] == [
+        "rank 2 of 3 sits this run out: the batch of 8 divides over the "
+        "first 2 rank(s) (fit_mesh)"]

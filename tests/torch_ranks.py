@@ -253,18 +253,52 @@ def replay_draws(draws):
 
 def run_train_cnn(mesh, job, ckpt_dir):
     from reid_tpu_torch.data.dataset import synthetic_dataset
+    from reid_tpu_torch.train import steps
     from reid_tpu_torch.train.image_train import train_cnn
     tj = job["train_cnn"]
     tc = tj["config"]
+    keep = steps.augment_draws
     replay_draws(tj["draws"])
     ds = synthetic_dataset(**tj["dataset"])
     state = port_train_state(tj, tc)
-    state, losses = train_cnn(tc, ds, state=state, log_every=1,
-                              ckpt_dir=ckpt_dir, device="cpu", mesh=mesh)
+    try:
+        state, losses = train_cnn(tc, ds, state=state, log_every=1,
+                                  ckpt_dir=ckpt_dir, device="cpu",
+                                  mesh=mesh)
+    finally:
+        steps.augment_draws = keep
     return {"losses": losses, "files": sorted(os.listdir(ckpt_dir))
             if os.path.isdir(ckpt_dir) else [],
             "centers": state.loss_state.centers,
             "params": [p.detach().clone() for p in state.model.parameters()]}
+
+
+@program
+def train_main(mesh, job):
+    """`cli.train_main` (bf16 SERes18, the CLI's defaults) on a small
+    Market-style tree at 64x32 that each rank writes for itself, joining
+    the group's mesh through `mesh_from_env` as under `torchrun`: what it
+    printed, whether it returned a state, the files it wrote and the
+    trained parameters."""
+    import contextlib
+    import io
+    from reid_tpu_torch.cli import train_main as cli_train_main
+    from reid_tpu_torch.data.datasets import write_synthetic_tree
+    d = os.path.join(os.environ["RANKS_DIR"], f"train_main{mesh.rank}")
+    root = write_synthetic_tree(os.path.join(d, "market"), "market1501",
+                                **job["train_main"]["tree"])
+    ckpt_dir = os.path.join(d, "ckpt")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed), \
+            torch.backends.mkldnn.flags(enabled=False):
+        state = cli_train_main(["--root", root] + job["train_main"]["flags"],
+                               device="cpu", ckpt_dir=ckpt_dir)
+    return {"printed": printed.getvalue().splitlines(),
+            "trained": state is not None,
+            "files": sorted(os.listdir(ckpt_dir))
+            if os.path.isdir(ckpt_dir) else [],
+            "params": [] if state is None else
+            [p.detach().clone() for p in state.model.parameters()]}
 
 
 @program
